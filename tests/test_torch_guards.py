@@ -1,0 +1,176 @@
+"""Guards of the PyTorch port: it never imports JAX or the JAX package, it
+refuses a CUDA request without CUDA (no silent fallback to the CPU), every
+branch that is not ported raises NotImplementedError, the CLI runs the slice
+on the CPU, and chip_smoke.py refuses to run without a card."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from eags_slam_torch.config import load_config
+from eags_slam_torch.ops import composite_sorted as cs
+from eags_slam_torch.ops import rasterizer as TR
+from eags_slam_torch.slam import tracker as TT
+from eags_slam_torch.slam.gaussian_slam import GaussianSLAM
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "eags_slam_torch"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_package_never_imports_jax(path):
+    """No module of the port imports jax, jaxlib or eags_slam_tpu, and none
+    names them in an import-like string."""
+    for mod in _imports(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "eags_slam_tpu"), \
+            f"{path}: imports {mod}"
+    text = path.read_text()
+    assert "import jax" not in text and "from jax" not in text
+
+
+def test_chip_smoke_never_imports_jax():
+    for mod in _imports(REPO / "chip_smoke.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "eags_slam_tpu")
+
+
+def _tiny(tmp_path, frames=1, **sections):
+    cfg = load_config(str(REPO / "configs/synthetic/tiny.yaml"))
+    cfg["device"] = "cpu"
+    cfg["frame_limit"] = frames
+    cfg["data"]["output_path"] = str(tmp_path / "out")
+    for sec, d in sections.items():
+        if isinstance(d, dict):
+            cfg.setdefault(sec, {}).update(d)
+        else:
+            cfg[sec] = d
+    return cfg
+
+
+def test_gaussian_slam_cuda_without_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = _tiny(tmp_path)
+    cfg["device"] = "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GaussianSLAM(cfg)
+
+
+def test_kernel_wrappers_raise_without_cuda():
+    """A non-CPU tensor never takes the plain twin: without CUDA the
+    wrappers raise, and neither the kernels' nor the twins' counters
+    move."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cs.load_kernels()
+    meta = dict(device="meta")
+    attrs = torch.empty((16, 384), **meta)
+    ss = torch.empty((6, 3), dtype=torch.int32, **meta)
+    ids = torch.empty(6, dtype=torch.int32, **meta)
+    out = torch.empty((6, 8, 256), **meta)
+    cs.reset_counts()
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        cs.composite_sorted_fwd(attrs, ss, ss, ids, 16, 3, 3, 128)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        cs.composite_sorted_bwd(attrs, ids, out, ss, out, 16, 3)
+    assert cs.counts() == {"fwd_launches": 0, "bwd_launches": 0,
+                           "fwd_twin_calls": 0, "bwd_twin_calls": 0}
+
+
+@pytest.mark.parametrize("field,value", [
+    ("backend", "jnp"), ("backend", "pallas"), ("kernel_bf16", True),
+    ("kernel_quadform", True), ("rmw_window", True)])
+def test_unported_raster_options_raise(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TR.check_config(TR.RasterConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field", ["pose_grad_kernel", "debug_per_iter"])
+def test_unported_tracker_options_raise(field):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.check_config(TT.TrackerConfig(**{field: True}))
+
+
+@pytest.mark.parametrize("sections", [
+    {"tracking": {"odometry_type": "odometer"}},
+    {"tracking": {"help_camera_initialization": True}},
+    {"lc": {"enabled": True}},
+    {"use_mesh": True},
+    {"force_mesh": True},
+    {"tracking": {"sp_track": True}},
+    {"mapping": {"init_halfres_frac": 0.5}},
+    {"mapping": {"rmw_window": True}},
+    {"mapping": {"kernel_bf16": True}},
+    {"data": {"dataset_name": "synthetic_hard"}},
+    {"data": {"dataset_name": "replica"}},
+], ids=lambda s: next(iter(s)) + "." + str(next(iter(s.values()))))
+def test_unported_config_branches_raise(tmp_path, sections):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GaussianSLAM(_tiny(tmp_path, **sections))
+
+
+@pytest.mark.parametrize("key", ["eval_mesh", "eval_global", "save_render"])
+def test_unported_evaluation_raises(key):
+    from eags_slam_torch.evaluation.evaluator import check_config
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_config({"evaluation": {key: True}})
+    check_config(load_config(str(REPO / "configs/synthetic/tiny.yaml")))
+
+
+def test_cli_runs_slice_on_cpu(tmp_path):
+    """`python -m eags_slam_torch.run_slam` on 2 frames of the tiny config:
+    the JAX CLI's report lines and artifacts."""
+    out = tmp_path / "run"
+    # Two threads: the suite runs in several processes at once, and more
+    # threads than cores slow all of them down.
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-m", "eags_slam_torch.run_slam",
+         "configs/synthetic/tiny.yaml", "--frame_limit", "2", "--device",
+         "cpu", "--output_path", str(out)], cwd=REPO, capture_output=True,
+        text=True, timeout=600, env=env)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.splitlines()
+    for prefix in ("FPS:", "Track avg:", "ATE-RMSE:"):
+        assert any(line.startswith(prefix) for line in lines), res.stdout
+    for name in ("estimated_c2w.npz", "config.yaml", "log.jsonl",
+                 "ate.json", "rendering_metrics.json", "evaluation.json"):
+        assert (out / name).exists(), name
+    assert sorted(os.listdir(out / "submaps"))
+    c2w = np.load(out / "estimated_c2w.npz")["c2ws"]
+    assert c2w.shape == (2, 4, 4) and np.all(np.isfinite(c2w))
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_card(tmp_path, alone):
+    """Without CUDA, and in a directory that holds chip_smoke.py and nothing
+    else of the repo, the script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cwd = REPO
+    if alone:
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                         capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
