@@ -34,17 +34,18 @@
 //    (16, Npad) gradient with global atomicAdd. The summation order then
 //    varies from run to run (last-bit differences, ~1e-6 relative).
 //  - Built with -fmad=false so the recomputed alphas round like the forward.
+//  - The per-(pixel, survivor) replay step is shared with K4 (replay.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "replay.cuh"
+
 namespace {
 
-constexpr int CHUNK = 128;
-constexpr int NTHREADS = 256;
-constexpr int OUT_CH = 8;
+using eags::CHUNK;
+using eags::NTHREADS;
+using eags::OUT_CH;
 constexpr int NG = 10;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
 
 template <int PPT>
 __global__ void __launch_bounds__(NTHREADS)
@@ -111,33 +112,23 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
       int any = 0;
 #pragma unroll
       for (int q = 0; q < PPT; ++q) {
-        const float du = pu[q] - mu;
-        const float dv = pv[q] - mv;
-        const float power = -0.5f * (ca * du * du + cc * dv * dv) - cb * du * dv;
-        if (power > 0.0f) continue;
-        const float gg = expf(power);
-        const float alpha = fminf(op * gg, ALPHA_MAX);
-        if (alpha < ALPHA_MIN) continue;
-        const float log1m = log1pf(-alpha);
-        const float log_before = log_after[q] - log1m;
-        const float T = expf(log_before);
-        const float w = alpha * T;
-        const float qv = d4[q][0] * f0 + d4[q][1] * f1 + d4[q][2] * f2 +
-                         d4[q][3] * f3 + dA[q];
-        const float d_alpha = T * qv - bsum[q] / fmaxf(1.0f - alpha, 1e-6f);
-        bsum[q] += w * qv;
-        log_after[q] = log_before;
-        const float dpower = d_alpha * alpha;
+        eags::ReplayTerms e;
+        if (!eags::replay_step(pu[q], pv[q], mu, mv, ca, cb, cc, op, f0, f1,
+                               f2, f3, d4[q], dA[q], log_after[q], bsum[q],
+                               e))
+          continue;
+        const float du = e.du, dv = e.dv;
+        const float dpower = e.d_alpha * e.alpha;
         r[0] += dpower * (ca * du + cb * dv);
         r[1] += dpower * (cc * dv + cb * du);
         r[2] += -0.5f * du * du * dpower;
         r[3] += -du * dv * dpower;
         r[4] += -0.5f * dv * dv * dpower;
-        r[5] += d_alpha * gg;
-        r[6] += d4[q][0] * w;
-        r[7] += d4[q][1] * w;
-        r[8] += d4[q][2] * w;
-        r[9] += d4[q][3] * w;
+        r[5] += e.d_alpha * e.gg;
+        r[6] += d4[q][0] * e.w;
+        r[7] += d4[q][1] * e.w;
+        r[8] += d4[q][2] * e.w;
+        r[9] += d4[q][3] * e.w;
         any = 1;
       }
       if (__any_sync(0xffffffffu, any)) {

@@ -1,5 +1,6 @@
 """Frame sources for the port (port of `BaseDataset` + `Synthetic` of
-eags_slam_tpu.datasets).
+eags_slam_tpu.datasets; the ray-cast `synthetic_hard` scene is in
+`synthetic_hard.py`).
 
 `Synthetic` is the procedural gaussian-splat room with exact GT poses: the
 scene and trajectory come from numpy with the config's seed (the same
@@ -99,6 +100,12 @@ class BaseDataset:
         rgb8, d16 = self._frames[idx]
         return rgb8.to(torch.float32) / 255.0, d16.to(torch.float32)
 
+    def frame_u8(self, idx: int):
+        """(color (H, W, 3) uint8, depth (H, W) f32 metres) on the
+        dataset's device: the VO's input."""
+        rgb8, d16 = self._frames[idx]
+        return rgb8, d16.to(torch.float32)
+
     def __getitem__(self, idx: int):
         color, depth = self.frame(idx)
         return (idx, color.cpu().numpy(), depth.cpu().numpy(),
@@ -167,9 +174,9 @@ def get_dataset(name: str):
     if name == "synthetic":
         return Synthetic
     if name == "synthetic_hard":
-        raise NotImplementedError(
-            "dataset synthetic_hard: its raycaster is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+        from .synthetic_hard import SyntheticHard
+
+        return SyntheticHard
     raise NotImplementedError(
         f"dataset {name!r}: the real-data readers are not ported yet "
         "(ROADMAP Queue 1 item 13)")

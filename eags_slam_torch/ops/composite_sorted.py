@@ -1,9 +1,11 @@
-"""Sorted-backend compositing: the K1 (forward) and K2 (backward) kernels,
-their plain PyTorch twins, and the autograd.Function that joins them.
+"""Sorted-backend compositing: the K1 (forward), K2 (backward) and K4
+(pose-contraction backward) kernels, their plain PyTorch twins, and the
+autograd.Function that joins K1 and K2.
 
 Replaces `eags_slam_tpu.ops.rasterizer_pallas_v2.composite_sorted`
-(`_fwd_kernel`, `_bwd_kernel` with window=False, `_replay_chunks`) and the
-constants + `_chunk_alpha` of `rasterizer_pallas.py`.
+(`_fwd_kernel`, `_bwd_kernel` with window=False, `_replay_chunks`),
+`pose_grad_sorted` (`_pose_bwd_kernel`) and the constants + `_chunk_alpha`
+of `rasterizer_pallas.py`.
 
 Semantics (identical in kernel and twin):
   - attrs (16, Npad) f32, rows 0 u, 1 v, 2-4 conic a/b/c, 5 opacity,
@@ -28,11 +30,17 @@ Semantics (identical in kernel and twin):
   - The backward mirrors `_replay_chunks` term by term, including dop =
     sum(d_alpha * g) with g = exp(min(power, 0)) where alpha was clipped at
     0.99, and the max(1 - alpha, 1e-6) guard. Grads land in (16, Npad).
+  - K4 replays as K2 does but keeps only the 6 pose-dependent rows
+    (`GROWS`: u, v, conic a/b/c, depth) and contracts each survivor's
+    totals with its pose jacobian jac (48, Npad), row p * 6 + ch for pose
+    parameter p < 7 (quat wxyz, trans xyz; row block 7 is padding), column
+    in the attrs' sorted order. It returns dpose (7,).
 
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel (built from `csrc/` at first use) or raises. There is no other
-fallback. `fwd_launches` / `bwd_launches` count kernel launches;
-`fwd_twin_calls` / `bwd_twin_calls` count twin calls.
+fallback. `fwd_launches` / `bwd_launches` / `pose_launches` count kernel
+launches; `fwd_twin_calls` / `bwd_twin_calls` / `pose_twin_calls` count
+twin calls.
 """
 from __future__ import annotations
 
@@ -55,22 +63,31 @@ LOG_T_MIN = -11.5
 OUT_CH = 8
 MAX_CAPT = 4096
 INT_MAX = 2**31 - 1
+PJ = 6                       # pose-dependent attr rows per pose parameter
+P_MAX = 8                    # pose parameters, padded (7 used)
+GROWS = (0, 1, 2, 3, 4, 9)   # attr rows matching the PJ jacobian channels
 
 fwd_launches = 0
 bwd_launches = 0
+pose_launches = 0
 fwd_twin_calls = 0
 bwd_twin_calls = 0
+pose_twin_calls = 0
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches, fwd_twin_calls, bwd_twin_calls
-    fwd_launches = bwd_launches = fwd_twin_calls = bwd_twin_calls = 0
+    global fwd_launches, bwd_launches, pose_launches
+    global fwd_twin_calls, bwd_twin_calls, pose_twin_calls
+    fwd_launches = bwd_launches = pose_launches = 0
+    fwd_twin_calls = bwd_twin_calls = pose_twin_calls = 0
 
 
 def counts() -> dict:
     return {"fwd_launches": fwd_launches, "bwd_launches": bwd_launches,
+            "pose_launches": pose_launches,
             "fwd_twin_calls": fwd_twin_calls,
-            "bwd_twin_calls": bwd_twin_calls}
+            "bwd_twin_calls": bwd_twin_calls,
+            "pose_twin_calls": pose_twin_calls}
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +215,31 @@ def composite_sorted_bwd_plain(attrs, tile_ids, out, cols, dout, tile: int,
     `_replay_chunks`. Returns grads (16, Npad)."""
     global bwd_twin_calls
     bwd_twin_calls += 1
+    return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
+
+
+@torch.no_grad()
+def pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols, dout, tile: int,
+                           tiles_x: int):
+    """Plain PyTorch twin of K4: K2's replay grads, rows GROWS, contracted
+    with the pose jacobian. Returns dpose (7,)."""
+    global pose_twin_calls
+    pose_twin_calls += 1
+    g = _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
+    gsel = g[list(GROWS)]                                # (6, Npad)
+    return (jac[: 7 * PJ].reshape(7, PJ, -1) * gsel[None]).sum((1, 2))
+
+
+def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
+                  tiles_x: int):
     grads = torch.zeros_like(attrs)
     s = tile_ids.shape[0]
     if s == 0:
         return grads
+    # K1 leaves the columns past each tile's survivor count unwritten.
+    lane = torch.arange(cols.shape[1], device=cols.device)
+    cols = torch.where(lane[None, :] < out[:, 7, :1].long(), cols,
+                       torch.zeros_like(cols))
     pu, pv = _pixel_coords(tile_ids, tile, tiles_x)
     dout_px = dout[:, 0:4].permute(0, 2, 1)            # (S, PX, 4)
     d_alpha_map = dout[:, 4]                           # (S, PX)
@@ -256,10 +294,12 @@ def composite_sorted_bwd_plain(attrs, tile_ids, out, cols, dout, tile: int,
 # ---------------------------------------------------------------------------
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("composite_sorted_fwd.cu", "composite_sorted_bwd.cu")
+SOURCES = ("composite_sorted_fwd.cu", "composite_sorted_bwd.cu",
+           "pose_grad_sorted.cu")
+HEADERS = ("replay.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eags_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 build_seconds = None
@@ -273,11 +313,26 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds, what: str, verbose: bool):
+    """Start every command at once, wait for all; raise if one failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    for p in procs:
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"{what} failed ({p.returncode}):\n{out}\n"
+                               f"{err}")
+        if verbose:
+            print(out + err, flush=True)
+
+
 def build_kernels(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into one shared library (cached by source hash)."""
+    """Compile csrc/*.cu into one shared library (cached by source hash):
+    one nvcc per source, all started together, then one link."""
     global build_seconds
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"libeags_composite_{h.hexdigest()[:16]}.so"
@@ -286,16 +341,16 @@ def build_kernels(verbose: bool = False) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (Path(n).stem + ".o") for n in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
+                   str(CSRC / n)] for n, o in zip(SOURCES, objs)],
+                 "nvcc", verbose)
         tmp_lib = Path(tmp) / lib.name
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp_lib), *[str(CSRC / n) for n in SOURCES]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+                   *map(str, objs)]], "nvcc link", verbose)
         os.replace(tmp_lib, lib)
     build_seconds = time.perf_counter() - t0
     return lib
@@ -317,6 +372,9 @@ def load_kernels(verbose: bool = False):
     lib.eags_composite_sorted_bwd.argtypes = [P, L, P, I, I, I, I, P, P, P,
                                               P, P]
     lib.eags_composite_sorted_bwd.restype = I
+    lib.eags_pose_grad_sorted.argtypes = [P, P, L, P, I, I, I, I, P, P, P,
+                                          P, P]
+    lib.eags_pose_grad_sorted.restype = I
     _LIB = lib
     return lib
 
@@ -402,6 +460,45 @@ def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
     _cuda_check(err, "K2 launch")
     bwd_launches += 1
     return grads
+
+
+def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
+                     tiles_x: int):
+    """K4 on CUDA tensors, the plain twin on CPU tensors. `attrs`, `out`,
+    `cols` are K1's input and residuals, `dout` the (S, 8, PX) cotangent,
+    `jac` (48, Npad) the pose jacobian. Returns dpose (7,) f32: each block
+    writes its tile's 7 sums in a fixed order and the (S, 8) partials are
+    summed here, so the result does not change from run to run."""
+    if attrs.device.type == "cpu":
+        return pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols, dout,
+                                      tile, tiles_x)
+    if attrs.device.type != "cuda":
+        raise RuntimeError(f"pose_grad_sorted: no kernel for device "
+                           f"{attrs.device}")
+    global pose_launches
+    lib = load_kernels()
+    for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
+                             (jac, "jac", torch.float32, 2),
+                             (tile_ids, "tile_ids", torch.int32, 1),
+                             (out, "out", torch.float32, 3),
+                             (cols, "cols", torch.int32, 2),
+                             (dout, "dout", torch.float32, 3)):
+        _check(t, name, dt, dim)
+    if jac.shape != (P_MAX * PJ, attrs.shape[1]):
+        raise ValueError(f"jac must be ({P_MAX * PJ}, Npad), got "
+                         f"{tuple(jac.shape)}")
+    s = tile_ids.shape[0]
+    part = torch.empty((s, P_MAX), dtype=torch.float32, device=attrs.device)
+    if s == 0:
+        return part.new_zeros(7)
+    err = lib.eags_pose_grad_sorted(
+        attrs.data_ptr(), jac.data_ptr(), attrs.shape[1], tile_ids.data_ptr(),
+        s, tile, tiles_x, cols.shape[1], out.data_ptr(), cols.data_ptr(),
+        dout.data_ptr(), part.data_ptr(),
+        torch.cuda.current_stream(attrs.device).cuda_stream)
+    _cuda_check(err, "K4 launch")
+    pose_launches += 1
+    return part.sum(0)[:7]
 
 
 class CompositeSorted(torch.autograd.Function):

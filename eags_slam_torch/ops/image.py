@@ -1,5 +1,6 @@
-"""Image ops on the main path (port of the matching functions of
-eags_slam_tpu.ops.image): luma, Sobel, dilation, Canny, bit-mask unpacking,
+"""Image ops (port of eags_slam_tpu.ops.image): luma, 5-tap blur, Sobel /
+Scharr, dilation, Canny, the windowed L2 distance transform and its
+gradient structure, pyramids, bilinear sampling, bit-mask unpacking,
 gradient sampling probabilities, hole-aware depth downsampling."""
 from __future__ import annotations
 
@@ -22,9 +23,20 @@ def _conv2_same(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.conv2d(pad, kernel[None, None].to(img))[0, 0]
 
 
+def gaussian_blur5(img: torch.Tensor) -> torch.Tensor:
+    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=img.device) / 16.0
+    return _conv2_same(_conv2_same(img, k[None, :]), k[:, None])
+
+
 def sobel(img: torch.Tensor):
     kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
                       device=img.device)
+    return _conv2_same(img, kx), _conv2_same(img, kx.T.contiguous())
+
+
+def scharr(img: torch.Tensor):
+    kx = torch.tensor([[-3.0, 0.0, 3.0], [-10.0, 0.0, 10.0],
+                       [-3.0, 0.0, 3.0]], device=img.device) / 32.0
     return _conv2_same(img, kx), _conv2_same(img, kx.T.contiguous())
 
 
@@ -73,6 +85,67 @@ def canny(gray: torch.Tensor, low: float, high: float,
     for _ in range(hysteresis_iters):
         grown = weak & dilate(grown, 3)
     return grown | strong
+
+
+def _min_plus(g: torch.Tensor, window: int, dim: int, big: float):
+    """min over |d| <= window of g shifted by d along `dim`, plus d^2;
+    outside the image counts as `big` (never below the unshifted value)."""
+    pad = [0, 0, 0, 0]
+    pad[2 * (1 - dim):2 * (1 - dim) + 2] = [window, window]
+    gp = F.pad(g, pad, value=big)
+    d = torch.arange(-window, window + 1, device=g.device)
+    win = gp.unfold(dim, 2 * window + 1, 1)            # (H, W, 2W+1)
+    return (win + (d * d).to(g.dtype)).amin(-1)
+
+
+def distance_transform_l2(edges: torch.Tensor, window: int = 32):
+    """Euclidean distance (px) to the nearest edge pixel, exact up to
+    `window` and clamped to `window` beyond: the separable squared-distance
+    min-plus over 2 * window + 1 shifts per axis. Every intermediate is an
+    integer below 2^24, so the result is exact in float32."""
+    big = float(window * window * 4)
+    f = torch.where(edges, 0.0, big).to(torch.float32)
+    g = _min_plus(f, window, 0, big)
+    d2 = _min_plus(g, window, 1, big)
+    return torch.clamp(torch.sqrt(d2), max=float(window))
+
+
+def dt_with_gradients(edges: torch.Tensor, window: int = 32):
+    """(gx, gy, dt): the distance transform and its halved central
+    differences (edge-replicated border)."""
+    dt = distance_transform_l2(edges, window)
+    pad = F.pad(dt[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    gx = 0.5 * (pad[1:-1, 2:] - pad[1:-1, :-2])
+    gy = 0.5 * (pad[2:, 1:-1] - pad[:-2, 1:-1])
+    return gx, gy, dt
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrDown equivalent: 5-tap gaussian then 2x subsample."""
+    return gaussian_blur5(img)[::2, ::2]
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor):
+    """Sample an (H, W) or (H, W, C) image at float pixel coords uv (..., 2).
+    Returns (values, in_bounds); out-of-bounds samples read the clamped
+    border. The corner indices are clamped in float before the integer
+    cast (a cast of a far-off float is undefined in PyTorch)."""
+    h, w = img.shape[:2]
+    u, v = uv[..., 0], uv[..., 1]
+    u0, v0 = torch.floor(u), torch.floor(v)
+    fu, fv = u - u0, v - v0
+    u0i = torch.clamp(u0, 0, w - 2).long()
+    v0i = torch.clamp(v0, 0, h - 2).long()
+    in_b = (u >= 0) & (u <= w - 1.001) & (v >= 0) & (v <= h - 1.001)
+    i00 = img[v0i, u0i]
+    i01 = img[v0i, u0i + 1]
+    i10 = img[v0i + 1, u0i]
+    i11 = img[v0i + 1, u0i + 1]
+    if img.dim() == 3:
+        fu, fv = fu[..., None], fv[..., None]
+    val = (i00 * (1 - fu) * (1 - fv) + i01 * fu * (1 - fv)
+           + i10 * (1 - fu) * fv + i11 * fu * fv)
+    return val, in_b
 
 
 def depth_pyr_down(depth: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,12 @@ Pipeline:
   3. Compositing: `ops.composite_sorted` (the K1/K2 CUDA kernels on the
      card, their plain twins on the CPU).
 
+The frozen-sorted tracking render also has a pose-contraction backward
+(`render_frozen_sorted(_tiles)_pose`): the gradient w.r.t. the 7 relative
+pose parameters comes from K4, which contracts the replay's per-entry
+grads with per-gaussian pose jacobians instead of writing a (16, Npad)
+grad array and running autograd through the reprojection.
+
 Gradients reach every array input (means, quats, scales, opacity, colours
 and the pose) through PyTorch autograd; the column gather of `_sorted_attrs`
 is plain indexing, whose backward is a scatter-add.
@@ -29,7 +35,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.camera import Camera
-from .composite_sorted import NCH, composite_sorted
+from .composite_sorted import (NCH, P_MAX, PJ, composite_sorted,
+                               composite_sorted_fwd, pose_grad_sorted)
 
 
 class RasterConfig(NamedTuple):
@@ -485,3 +492,200 @@ def gt_tiles(image: torch.Tensor, tile_ids, ts: int, tiles_x: int,
     img = img.reshape((tiles_y, ts, tiles_x, ts) + chan)
     img = img.movedim(2, 1).reshape((tiles_y * tiles_x, ts, ts) + chan)
     return img[tile_ids.long()]
+
+
+# ---------------------------------------------------------------------------
+# Pose-contraction tracking path (K4)
+# ---------------------------------------------------------------------------
+
+
+def _pose_rel_w2c(pose_vec: torch.Tensor, last_w2c: torch.Tensor):
+    """w2c = last_w2c @ Rel(quat=pose_vec[:4], trans=pose_vec[4:7]), the
+    float chain of the tracker's `last_w2c @ _rel_matrix(quat, trans)`."""
+    R = _quat_to_rotmat(pose_vec[:4])
+    top = torch.cat([R, pose_vec[4:7, None]], 1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype,
+                          device=R.device)
+    return last_w2c @ torch.cat([top, bottom], 0)
+
+
+# d rotmat(n) / d n for a unit quaternion n = (w, x, y, z): every entry is
+# linear in n, d R[i, j] / d n_k = sum_l _DROT[3 i + j, k, l] n_l.
+_DROT = torch.zeros((9, 4, 4))
+for _ij, _k, _l, _c in (
+        (0, 2, 2, -4), (0, 3, 3, -4),
+        (1, 0, 3, -2), (1, 1, 2, 2), (1, 2, 1, 2), (1, 3, 0, -2),
+        (2, 0, 2, 2), (2, 1, 3, 2), (2, 2, 0, 2), (2, 3, 1, 2),
+        (3, 0, 3, 2), (3, 1, 2, 2), (3, 2, 1, 2), (3, 3, 0, 2),
+        (4, 1, 1, -4), (4, 3, 3, -4),
+        (5, 0, 1, -2), (5, 1, 0, -2), (5, 2, 3, 2), (5, 3, 2, 2),
+        (6, 0, 2, -2), (6, 1, 3, 2), (6, 2, 0, -2), (6, 3, 1, 2),
+        (7, 0, 1, 2), (7, 1, 0, 2), (7, 2, 3, 2), (7, 3, 2, 2),
+        (8, 1, 1, -4), (8, 2, 2, -4)):
+    _DROT[_ij, _k, _l] = _c
+
+
+def _w2c_tangents(pose_vec, last_w2c):
+    """Tangents of w2c = last_w2c @ Rel(pose_vec) along the 7 pose
+    parameters: dR (7, 3, 3), dt (7, 3). The quaternion is normalised
+    inside Rel, so d n / d q = (I - n n^T) / |q|."""
+    q = pose_vec[:4]
+    s = torch.clamp(torch.linalg.norm(q), min=1e-12)
+    n = q / s
+    dfdn = torch.einsum("mkl,l->mk", _DROT.to(q.device), n)     # (9, 4)
+    dndq = (torch.eye(4, device=q.device) - n[:, None] * n[None, :]) / s
+    dRq = (dfdn @ dndq).reshape(3, 3, 4).permute(2, 0, 1)       # (4, 3, 3)
+    LR = last_w2c[:3, :3]
+    dR = torch.cat([LR @ dRq, torch.zeros((3, 3, 3), device=q.device)])
+    dt = torch.cat([torch.zeros((4, 3), device=q.device), LR.T])
+    return dR, dt
+
+
+def _pose_jacobian(e3d, pose_vec, last_w2c, cam: Camera, cfg: RasterConfig):
+    """(P_MAX * PJ, Npad) jacobian d(pose-dependent rows) / d(pose_vec) in
+    K4's row layout p * PJ + ch, columns in e3d's (sorted) order.
+
+    Forward-mode derivative of `_reproject_rows` (rows u, v, conic a/b/c,
+    depth), written out with the 7 tangents as a leading batch axis: the
+    same derivative as the JAX package's 7 JVP passes (clamps pass the
+    tangent inside their range and zero it outside), in about 80 elementwise
+    operations on (7, Npad) tensors."""
+    R = _pose_rel_w2c(pose_vec, last_w2c)
+    Rw, tw = R[:3, :3], R[:3, 3]
+    dR, dt = _w2c_tangents(pose_vec, last_w2c)
+    x = e3d[0:3]
+    p = Rw @ x + tw[:, None]                                    # (3, N)
+    dp = torch.einsum("kij,jn->kin", dR, x) + dt[:, :, None]    # (7, 3, N)
+    z = p[2]
+    zc = torch.clamp(z, min=cfg.near)
+    inv_z = 1.0 / zc
+    dzc = dp[:, 2] * (z > cfg.near)
+    dinv = -inv_z * inv_z * dzc
+    du = cam.fx * (dp[:, 0] * inv_z + p[0] * dinv)
+    dv = cam.fy * (dp[:, 1] * inv_z + p[1] * dinv)
+
+    sig = torch.stack([torch.stack([e3d[3], e3d[4], e3d[5]]),
+                       torch.stack([e3d[4], e3d[6], e3d[7]]),
+                       torch.stack([e3d[5], e3d[7], e3d[8]])])  # (3, 3, N)
+    S = torch.einsum("abn,ib->ian", sig, Rw)     # S[i] = Sigma r_i (3, N)
+    C = torch.einsum("ian,ja->ijn", S, Rw)       # C[i, j] = r_j Sigma r_i
+    dRS = torch.einsum("kia,jan->kijn", dR, S)   # dr_i . Sigma r_j
+    dC = dRS + dRS.transpose(1, 2)               # (7, 3, 3, N)
+
+    lim_x = 1.3 * (0.5 * cam.width / cam.fx)
+    lim_y = 1.3 * (0.5 * cam.height / cam.fy)
+    gx = p[0] * inv_z
+    gy = p[1] * inv_z
+    dgx = dp[:, 0] * inv_z + p[0] * dinv
+    dgy = dp[:, 1] * inv_z + p[1] * dinv
+    cx_ = torch.clamp(gx, -lim_x, lim_x)
+    cy_ = torch.clamp(gy, -lim_y, lim_y)
+    tx = cx_ * zc
+    ty = cy_ * zc
+    dtx = dgx * ((gx > -lim_x) & (gx < lim_x)) * zc + cx_ * dzc
+    dty = dgy * ((gy > -lim_y) & (gy < lim_y)) * zc + cy_ * dzc
+    iz2 = inv_z * inv_z
+    j00 = cam.fx * inv_z
+    j02 = -cam.fx * tx * iz2
+    j11 = cam.fy * inv_z
+    j12 = -cam.fy * ty * iz2
+    dj00 = cam.fx * dinv
+    dj02 = -cam.fx * (dtx * iz2 + tx * 2.0 * inv_z * dinv)
+    dj11 = cam.fy * dinv
+    dj12 = -cam.fy * (dty * iz2 + ty * 2.0 * inv_z * dinv)
+
+    C00, C01, C02 = C[0, 0], C[0, 1], C[0, 2]
+    C11, C12, C22 = C[1, 1], C[1, 2], C[2, 2]
+    dC00, dC01, dC02 = dC[:, 0, 0], dC[:, 0, 1], dC[:, 0, 2]
+    dC11, dC12, dC22 = dC[:, 1, 1], dC[:, 1, 2], dC[:, 2, 2]
+    A1 = j00 * C00 + j02 * C02
+    A2 = j00 * C02 + j02 * C22
+    B1 = j00 * C01 + j02 * C12
+    D1 = j11 * C11 + j12 * C12
+    D2 = j11 * C12 + j12 * C22
+    dA1 = dj00 * C00 + j00 * dC00 + dj02 * C02 + j02 * dC02
+    dA2 = dj00 * C02 + j00 * dC02 + dj02 * C22 + j02 * dC22
+    dB1 = dj00 * C01 + j00 * dC01 + dj02 * C12 + j02 * dC12
+    dD1 = dj11 * C11 + j11 * dC11 + dj12 * C12 + j12 * dC12
+    dD2 = dj11 * C12 + j11 * dC12 + dj12 * C22 + j12 * dC22
+    a = j00 * A1 + j02 * A2 + cfg.low_pass
+    b = j11 * B1 + j12 * A2
+    c = j11 * D1 + j12 * D2 + cfg.low_pass
+    da = dj00 * A1 + j00 * dA1 + dj02 * A2 + j02 * dA2
+    db = dj11 * B1 + j11 * dB1 + dj12 * A2 + j12 * dA2
+    dc = dj11 * D1 + j11 * dD1 + dj12 * D2 + j12 * dD2
+    det_raw = a * c - b * b
+    det = torch.clamp(det_raw, min=1e-12)
+    inv_det = 1.0 / det
+    ddet = (da * c + a * dc - 2.0 * b * db) * (det_raw > 1e-12)
+    dinv_det = -inv_det * inv_det * ddet
+    jac = torch.stack([du, dv, dc * inv_det + c * dinv_det,
+                       -(db * inv_det + b * dinv_det),
+                       da * inv_det + a * dinv_det, dp[:, 2]], 1)  # (7, 6, N)
+    jac = jac.reshape(7 * PJ, -1)
+    pad = torch.zeros((P_MAX * PJ - jac.shape[0], jac.shape[1]),
+                      dtype=jac.dtype, device=jac.device)
+    return torch.cat([jac, pad], 0).contiguous()
+
+
+class _FrozenPoseTiles(torch.autograd.Function):
+    """Raw tile blocks (S, 8, PX) of the frozen-sorted render, differentiable
+    w.r.t. `pose_vec` (7,) only: e3d and last_w2c are constants of the
+    refinement. The backward is K4."""
+
+    @staticmethod
+    def forward(ctx, pose_vec, e3d, seg_start, seg_cnt, tile_ids, last_w2c,
+                cam, cfg):
+        tiles_x, _ = _tiles(cam, cfg)
+        with torch.no_grad():
+            attrs = _stack_reproj_rows(
+                e3d, _pose_rel_w2c(pose_vec, last_w2c), cam, cfg).contiguous()
+        out, cols = composite_sorted_fwd(
+            attrs, seg_start.to(torch.int32).contiguous(),
+            seg_cnt.to(torch.int32).contiguous(), tile_ids, cfg.tile,
+            tiles_x, cfg.bands, cfg.seg_cap)
+        ctx.save_for_backward(pose_vec, e3d, last_w2c, attrs, tile_ids, out,
+                              cols)
+        ctx.geom = (cam, cfg)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        pose_vec, e3d, last_w2c, attrs, tile_ids, out, cols = \
+            ctx.saved_tensors
+        cam, cfg = ctx.geom
+        tiles_x, _ = _tiles(cam, cfg)
+        with torch.no_grad():
+            jac = _pose_jacobian(e3d, pose_vec.detach(), last_w2c, cam, cfg)
+        dpose = pose_grad_sorted(attrs, jac, tile_ids, out, cols,
+                                 dout.contiguous(), cfg.tile, tiles_x)
+        return (dpose[: pose_vec.shape[0]].to(pose_vec.dtype), None, None,
+                None, None, None, None, None)
+
+
+def _frozen_pose_tiles(fs: FrozenSorted, pose_vec, last_w2c, tile_ids,
+                       cam: Camera, cfg: RasterConfig):
+    check_config(cfg)
+    return _FrozenPoseTiles.apply(pose_vec, fs.e3d, fs.seg_start, fs.seg_cnt,
+                                  tile_ids.to(torch.int32).contiguous(),
+                                  last_w2c, cam, cfg)
+
+
+def render_frozen_sorted_tiles_pose(fs: FrozenSorted, pose_vec, last_w2c,
+                                    tile_ids, cam: Camera,
+                                    cfg: RasterConfig) -> TileRender:
+    """`render_frozen_sorted_tiles` at w2c = last_w2c @ Rel(pose_vec), with
+    the pose-contraction backward (K4): the same forward, the gradient
+    w.r.t. pose_vec (quat wxyz + trans) only."""
+    out = _frozen_pose_tiles(fs, pose_vec, last_w2c, tile_ids, cam, cfg)
+    return _tile_render(out, tile_ids.shape[0], cfg.tile)
+
+
+def render_frozen_sorted_pose(fs: FrozenSorted, pose_vec, last_w2c,
+                              cam: Camera, cfg: RasterConfig) -> RenderOutput:
+    """Full-image `render_frozen_sorted` with the pose-contraction
+    backward (see render_frozen_sorted_tiles_pose)."""
+    out = _frozen_pose_tiles(fs, pose_vec, last_w2c,
+                             _all_tiles(cam, cfg, fs.e3d.device), cam, cfg)
+    return _full_image(out, cam, cfg,
+                       torch.zeros(1, dtype=torch.int32, device=out.device))

@@ -2,17 +2,25 @@
 eags_slam_tpu.slam.gaussian_slam, the main path).
 
 Per frame: frames 0/1 take the GT pose, later frames are tracked from the
-const-speed and previous-pose candidates; a submap boundary (every
-`new_submap_every` frames or past the motion thresholds) saves the submap
-and starts a new one (warm-started from the outgoing submap's visible
-gaussians when `init_warm_start`); every `map_every`-th frame, the last
-frame and every boundary frame is mapped (seed rows, insert, optimise).
+const-speed and previous-pose candidates, plus the edge VO's candidate when
+the VO runs (`tracking.odometry_type: odometer` or
+`help_camera_initialization`); a submap boundary (every `new_submap_every`
+frames or past the motion thresholds) saves the submap and starts a new one
+(warm-started from the outgoing submap's visible gaussians when
+`init_warm_start`); every `map_every`-th frame, the last frame and every
+boundary frame is mapped (seed rows, insert, optimise), seeded from the
+VO's edge map when there is one, else from Canny edges.
+
+The VO steps every frame on the SLAM device, in this thread. Decoupled mode
+(`vo.decoupled`, the default) composes the VO's own relative motion onto
+the SLAM chain, slam(f-1) @ inv(vo(f-1)) @ vo(f), from frame 3 on; coupled
+mode injects each tracked pose into the VO (`set_pose`). Frames wider than
+800 px run the VO at half resolution unless `vo.downscale_levels` is set.
 
 Not ported yet, each raising NotImplementedError when a config selects it:
-the edge VO (`tracking.odometry_type: odometer`,
-`help_camera_initialization`), loop closure (`lc.enabled`), the device
-mesh (`use_mesh`, `force_mesh`, `sp_track`) and the half-resolution submap
-init (`init_halfres_frac > 0`).
+loop closure (`lc.enabled`), the device mesh (`use_mesh`, `force_mesh`,
+`sp_track`), the half-resolution submap init (`init_halfres_frac > 0`) and
+a VO pinned to another device (`vo.device`).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from ..core import gaussians as G
 from ..core.camera import Camera
 from ..datasets import get_dataset
 from ..ops.rasterizer import RasterConfig, check_config
+from ..vo.system import EdgeVO, VOConfig
 from . import mapper as M
 from .logger import Logger
 from .submap import Submap, pack_state
@@ -50,11 +59,6 @@ def exceeds_motion_thresholds(c2w: np.ndarray, anchor_c2w: np.ndarray,
 
 def _check_slice(config: Dict) -> None:
     tc = config["tracking"]
-    if str(tc.get("odometry_type", "const_speed")) == "odometer" or \
-            tc.get("help_camera_initialization", False):
-        raise NotImplementedError(
-            "tracking.odometry_type 'odometer' / help_camera_initialization: "
-            "the edge VO is not ported (ROADMAP Queue 1 item 9)")
     if config.get("lc", {}).get("enabled", False):
         raise NotImplementedError(
             "lc.enabled: loop closure is not ported (ROADMAP Queue 1 item 10)")
@@ -167,6 +171,18 @@ class GaussianSLAM:
         self.logger = Logger(self.output_path, self.verbose,
                              config.get("use_wandb", False))
         self.tracker = Tracker(self.tcfg, self.rcfg, self.cam)
+
+        self.odometer: Optional[EdgeVO] = None
+        self._vo_decoupled = bool(config.get("vo", {}).get("decoupled", True))
+        self._vo_last = None        # vo(f-1) in the VO's own world frame
+        if str(tc.get("odometry_type", "const_speed")) == "odometer" or \
+                tc.get("help_camera_initialization", False):
+            vo_cfg = dict(config.get("vo", {}))
+            if ("downscale_levels" not in vo_cfg
+                    and self.dataset.full_camera.width > 800):
+                vo_cfg["downscale_levels"] = 1
+            self.odometer = EdgeVO(VOConfig.from_dict(vo_cfg),
+                                   self.dataset.full_camera)
 
         n = len(self.dataset)
         self.estimated_c2ws = np.tile(np.eye(4), (n, 1, 1))
@@ -296,6 +312,30 @@ class GaussianSLAM:
             self._warm_inited = True
 
     # ------------------------------------------------------------------
+    def _vo_edges(self, frame_id: int):
+        """The VO's edge map of the frame as the seeding edges, (H, W) bool
+        at full resolution, or None for the Canny fallback (always for
+        ScanNet++, as in the reference)."""
+        if self.odometer is None or \
+                self.config["data"]["dataset_name"] == "scannetpp":
+            return None
+        e = self.odometer.get_edge_image(frame_id)
+        if e is None:
+            return None
+        full = self.dataset.full_camera
+        sy = max(int(round(full.height / e.shape[0])), 1)
+        if sy > 1:      # the VO ran decimated: upsample back
+            e = e.repeat_interleave(sy, 0).repeat_interleave(sy, 1)
+            e = e[: full.height, : full.width]
+        if tuple(e.shape) != (self.cam.height, self.cam.width):
+            return None
+        return e
+
+    def _vo_step(self, frame_id: int) -> np.ndarray:
+        rgb8, depth = self.dataset.frame_u8(frame_id)
+        return self.odometer.step(rgb8, depth,
+                                  self.dataset.timestamps[frame_id])
+
     def map_frame(self, frame_id: int, gt_color, gt_depth,
                   is_new_submap: bool):
         c2w = self.estimated_c2ws[frame_id]
@@ -306,10 +346,12 @@ class GaussianSLAM:
         key = self._key()
         gumbels = (self.draws.seed_gumbels(key, seed_as_new, gt_depth.numel())
                    if self.draws is not None else None)
+        edges = self._vo_edges(frame_id)
         rows, row_valid, n_valid, seeding_mask = M.seed_rows(
             self.state.params, self.state.alive, gt_color, gt_depth, c2w32,
-            w2c32, None, self.cam, self.rcfg, self.mcfg, seed_as_new, True,
-            True, self.mcfg.outlier_removal and not seed_as_new,
+            w2c32, edges, self.cam, self.rcfg, self.mcfg, seed_as_new,
+            edges is None, True,
+            self.mcfg.outlier_removal and not seed_as_new,
             generator=self._generator(key), gumbels=gumbels)
         if self._n_alive + n_valid > self.state.capacity:
             self.state = G.expand_state(
@@ -365,17 +407,39 @@ class GaussianSLAM:
             t_track = time.perf_counter()
             if frame_id in (0, 1) or self.gt_camera:
                 self.estimated_c2ws[frame_id] = gt_pose
+                if self.odometer is not None:
+                    if frame_id == 0:
+                        self.odometer.set_pose(0, gt_pose)
+                    self._vo_step(frame_id)
+                    self.odometer.set_pose(frame_id, gt_pose)
+                    self._vo_last = gt_pose
             else:
                 p1 = self.estimated_c2ws[frame_id - 1]
                 p2 = self.estimated_c2ws[frame_id - 2]
                 candidates = {"const_speed": p1 @ np.linalg.inv(p2) @ p1,
                               "previous": p1}
+                vo_ms = None
+                if self.odometer is not None:
+                    t_vo = time.perf_counter()
+                    vo_c2w = self._vo_step(frame_id)
+                    vo_ms = 1e3 * (time.perf_counter() - t_vo)
+                    if self._vo_decoupled:
+                        if frame_id >= 3 and self._vo_last is not None:
+                            candidates["odometer"] = (
+                                p1 @ np.linalg.inv(self._vo_last) @ vo_c2w)
+                        self._vo_last = vo_c2w
+                    elif frame_id >= 3:
+                        candidates["odometer"] = vo_c2w
                 c2w, exposure, stats = self.tracker.track(
                     self.state.params, self.state.alive,
                     self.estimated_c2ws[frame_id - 1], candidates,
                     gt_color, gt_depth)
                 self.estimated_c2ws[frame_id] = c2w
                 self.exposures_ab[frame_id] = np.asarray(exposure)
+                if self.odometer is not None and not self._vo_decoupled:
+                    self.odometer.set_pose(frame_id, c2w)
+                if vo_ms is not None:
+                    stats["vo_ms"] = vo_ms
                 self.logger.log_tracking(
                     frame_id, {k: float(v) for k, v in stats.items()})
             self._sync()
@@ -418,6 +482,11 @@ class GaussianSLAM:
             },
             "tracker": self.tracker.report(),
         }
+        if self.odometer is not None:
+            report["vo"] = self.odometer.report()
+            self.odometer.dump_tum(
+                os.path.join(self.output_path, "vo_traj_tum.txt"),
+                self.dataset.timestamps)
         self.logger.log("report", report)
         return report
 

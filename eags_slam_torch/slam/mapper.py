@@ -28,8 +28,7 @@ from ..core.gaussians import (OPT_KEYS, GaussianParams, GaussianState,
                               num_alive, point_rows)
 from ..core.sh import sh_to_rgb
 from ..ops import knn
-from ..ops.image import (canny, dilate, gradient_sample_probs, rgb_to_gray,
-                         unpack_mask_bits)
+from ..ops.image import canny, dilate, gradient_sample_probs, rgb_to_gray
 from ..ops.losses import isotropic_loss, masked_l1, ssim, ssim_batched
 from ..ops.rasterizer import (RasterConfig, gt_tiles, render,
                               render_sorted_resident,
@@ -254,17 +253,18 @@ def grow_submap(state: GaussianState, sample_ids, sample_valid, all_pts_w,
 
 @torch.no_grad()
 def seed_rows(params: GaussianParams, alive, gt_color, gt_depth, c2w, w2c,
-              edge_bits, cam: Camera, rcfg: RasterConfig, mcfg: MapperConfig,
+              edges, cam: Camera, rcfg: RasterConfig, mcfg: MapperConfig,
               is_new: bool, use_canny: bool, use_edge: bool = True,
               outlier: bool = False, generator=None, gumbels=None):
     """The pre-optimisation mapped-frame path: edges, seeding mask, seed
     sampling, backprojection, dedup + scale init, candidate rows.
+    `edges`: the (H, W) bool edge mask (the VO's), read unless `use_canny`.
     Returns (rows, valid, n_valid, seeding_mask)."""
     gray255 = rgb_to_gray(gt_color) * 255.0
     if use_canny:
         edge_b = canny(gray255, 100.0, 150.0, l2gradient=False)
     else:
-        edge_b = unpack_mask_bits(edge_bits, cam.height, cam.width)
+        edge_b = edges
     edge_b = edge_b.clone()
     edge_b[0] = False
     edge_b[-1] = False

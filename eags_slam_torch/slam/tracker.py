@@ -6,8 +6,11 @@ medians, then refine w2c = last_w2c @ Rel(quat, trans) with amsgrad Adam,
 ReduceLROnPlateau, the |delta loss| early stop, the optional stale-best stop
 and best-iterate recovery. The refinement renders a frozen centre-sorted
 layout (`freeze_sorted`), optionally on the top-scoring tile subset with a
-wider polish phase at the end. The JAX `lax.while_loop` is a Python loop
-here; its carry is plain Python/numpy scalars plus the pose tensors.
+wider polish phase at the end. With `pose_grad_kernel` the refinement's
+pose gradient comes from the pose-contraction backward (K4) instead of the
+K2 grads and autograd through the reprojection. The JAX `lax.while_loop` is
+a Python loop here; its carry is plain Python/numpy scalars plus the pose
+tensors.
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ from ..core.gaussians import GaussianParams
 from ..core.se3 import quat_to_rotmat, rotmat_to_quat
 from ..core.sh import sh_to_rgb
 from ..ops.rasterizer import (RasterConfig, freeze_sorted, gt_tiles, render,
-                              render_frozen_sorted,
-                              render_frozen_sorted_tiles, tile_sums)
+                              render_frozen_sorted, render_frozen_sorted_pose,
+                              render_frozen_sorted_tiles,
+                              render_frozen_sorted_tiles_pose, tile_sums)
 from ..utils import optim
 
 
@@ -46,7 +50,7 @@ class TrackerConfig(NamedTuple):
     enable_exposure: bool = False
     plateau_patience: int = 5
     plateau_factor: float = 0.95
-    pose_grad_kernel: bool = False   # K4, not ported
+    pose_grad_kernel: bool = False   # pose-contraction backward (K4)
     tile_subset_frac: float = 0.25
     polish_iters: int = 0
     polish_frac: float = 1.0
@@ -59,10 +63,6 @@ TRACK_STAT_NAMES = STAT_NAMES + ("best_cand", "init_color_loss",
 
 
 def check_config(tcfg: TrackerConfig) -> None:
-    if tcfg.pose_grad_kernel:
-        raise NotImplementedError(
-            "TrackerConfig.pose_grad_kernel: the pose-contraction backward "
-            "(K4) is not ported (ROADMAP Queue 2)")
     if tcfg.debug_per_iter:
         raise NotImplementedError(
             "TrackerConfig.debug_per_iter: per-iteration records are not "
@@ -149,19 +149,32 @@ def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
     if subset is not None:
         tile_ids, gt_c_t, gt_d_t, in_img = subset
 
-        def loss_fn(pose):
-            out = render_frozen_sorted_tiles(
+        def render_fn(pose):
+            if tcfg.pose_grad_kernel:
+                return render_frozen_sorted_tiles_pose(
+                    fs, torch.cat([pose["quat"], pose["trans"]]), last_w2c,
+                    tile_ids, cam, rcfg)
+            return render_frozen_sorted_tiles(
                 fs, last_w2c @ _rel_matrix(pose["quat"], pose["trans"]),
                 tile_ids, cam, rcfg)
-            cl, dl = _losses_from_output(out, pose, gt_c_t, gt_d_t, tcfg,
-                                         valid=in_img)
+
+        def loss_fn(pose):
+            cl, dl = _losses_from_output(render_fn(pose), pose, gt_c_t,
+                                         gt_d_t, tcfg, valid=in_img)
             return w * cl + (1 - w) * dl, (cl, dl)
     else:
-        def loss_fn(pose):
-            out = render_frozen_sorted(
+        def render_fn(pose):
+            if tcfg.pose_grad_kernel:
+                return render_frozen_sorted_pose(
+                    fs, torch.cat([pose["quat"], pose["trans"]]), last_w2c,
+                    cam, rcfg)
+            return render_frozen_sorted(
                 fs, last_w2c @ _rel_matrix(pose["quat"], pose["trans"]),
                 cam, rcfg)
-            cl, dl = _losses_from_output(out, pose, gt_color, gt_depth, tcfg)
+
+        def loss_fn(pose):
+            cl, dl = _losses_from_output(render_fn(pose), pose, gt_color,
+                                         gt_depth, tcfg)
             return w * cl + (1 - w) * dl, (cl, dl)
     return loss_fn
 

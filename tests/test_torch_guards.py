@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from eags_slam_torch.config import load_config
+from eags_slam_torch.core.camera import Camera
 from eags_slam_torch.ops import composite_sorted as cs
 from eags_slam_torch.ops import rasterizer as TR
 from eags_slam_torch.slam import tracker as TT
@@ -89,8 +90,12 @@ def test_kernel_wrappers_raise_without_cuda():
         cs.composite_sorted_fwd(attrs, ss, ss, ids, 16, 3, 3, 128)
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cs.composite_sorted_bwd(attrs, ids, out, ss, out, 16, 3)
+    jac = torch.empty((48, 384), **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        cs.pose_grad_sorted(attrs, jac, ids, out, ss, out, 16, 3)
     assert cs.counts() == {"fwd_launches": 0, "bwd_launches": 0,
-                           "fwd_twin_calls": 0, "bwd_twin_calls": 0}
+                           "pose_launches": 0, "fwd_twin_calls": 0,
+                           "bwd_twin_calls": 0, "pose_twin_calls": 0}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -103,13 +108,29 @@ def test_unported_raster_options_raise(field, value):
 
 @pytest.mark.parametrize("field", ["pose_grad_kernel", "debug_per_iter"])
 def test_unported_tracker_options_raise(field):
+    """debug_per_iter is not ported. The pose-contraction backward (K4) is,
+    but not K1's bf16 option under it."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.check_config(TT.TrackerConfig(**{field: True}))
+        if field == "pose_grad_kernel":
+            cam = Camera(50.0, 50.0, 15.5, 15.5, 32, 32)
+            fs = TR.FrozenSorted(torch.zeros((16, 1152)),
+                                 torch.zeros((4, 3), dtype=torch.int32),
+                                 torch.zeros((4, 3), dtype=torch.int32))
+            TR.render_frozen_sorted_pose(
+                fs, torch.tensor([1.0, 0, 0, 0, 0, 0, 0]), torch.eye(4), cam,
+                TR.RasterConfig(kernel_bf16=True))
+        else:
+            TT.check_config(TT.TrackerConfig(**{field: True}))
 
 
+# Sections whose first entry is now ported keep their case with an added
+# entry that still raises: the VO pinned to another device, and an edge
+# crop of the synthetic_hard frames (the readers that crop are not
+# ported). The ported branches run in test_ported_config_branches_run.
 @pytest.mark.parametrize("sections", [
-    {"tracking": {"odometry_type": "odometer"}},
-    {"tracking": {"help_camera_initialization": True}},
+    {"tracking": {"odometry_type": "odometer"}, "vo": {"device": "cpu"}},
+    {"tracking": {"help_camera_initialization": True},
+     "vo": {"device": "cuda:1"}},
     {"lc": {"enabled": True}},
     {"use_mesh": True},
     {"force_mesh": True},
@@ -117,12 +138,63 @@ def test_unported_tracker_options_raise(field):
     {"mapping": {"init_halfres_frac": 0.5}},
     {"mapping": {"rmw_window": True}},
     {"mapping": {"kernel_bf16": True}},
-    {"data": {"dataset_name": "synthetic_hard"}},
+    {"data": {"dataset_name": "synthetic_hard"}, "cam": {"crop_edge": 8}},
     {"data": {"dataset_name": "replica"}},
 ], ids=lambda s: next(iter(s)) + "." + str(next(iter(s.values()))))
 def test_unported_config_branches_raise(tmp_path, sections):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GaussianSLAM(_tiny(tmp_path, **sections))
+
+
+# A short, cheap run: 4 frames (frame 3 is the first with an odometer
+# candidate), few iterations.
+_CHEAP = {"mapping": {"iterations": 4, "new_submap_iterations": 8},
+          "tracking": {"iterations": 4}}
+
+
+@pytest.mark.parametrize("case", [
+    "odometer", "odometer_coupled", "help_camera_initialization",
+    "synthetic_hard", "pose_grad_kernel"])
+def test_ported_config_branches_run(tmp_path, case):
+    """The branches that used to raise now run: the edge VO (as the
+    odometer, decoupled or coupled, or only scoring its candidate), the
+    synthetic_hard scene, and the pose-contraction backward (its twin on
+    the CPU)."""
+    sections = {
+        "odometer": {"tracking": {"odometry_type": "odometer"}},
+        "odometer_coupled": {"tracking": {"odometry_type": "odometer"},
+                             "vo": {"decoupled": False}},
+        "help_camera_initialization": {
+            "tracking": {"help_camera_initialization": True}},
+        "synthetic_hard": {"data": {"dataset_name": "synthetic_hard",
+                                    "n_frames": 4}},
+        "pose_grad_kernel": {"tracking": {"pose_grad_kernel": True}},
+    }[case]
+    cfg = _tiny(tmp_path, frames=4, **_CHEAP)
+    for sec, d in sections.items():
+        cfg[sec].update(d)
+    # Two intra-op threads: the suite runs in several processes at once.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    gslam = GaussianSLAM(cfg)
+    try:
+        cs.reset_counts()
+        report = gslam.run()
+    finally:
+        gslam.cleanup()
+        torch.set_num_threads(threads)
+    assert report["frames"] == 4
+    cands = report["tracker"]["init_pose_cnt"]
+    assert sum(cands.values()) == 2
+    if "odometer" in case or case == "help_camera_initialization":
+        assert report["vo"]["n_keyframes"] >= 1
+        assert (tmp_path / "out" / "vo_traj_tum.txt").exists()
+    else:
+        assert "vo" not in report
+    if case == "pose_grad_kernel":
+        assert cs.counts()["pose_twin_calls"] > 0
+    else:
+        assert cs.counts()["pose_twin_calls"] == 0
 
 
 @pytest.mark.parametrize("key", ["eval_mesh", "eval_global", "save_render"])

@@ -1,4 +1,5 @@
-"""The K1 / K2 CUDA kernels against their plain PyTorch twins, on the card.
+"""The K1 / K2 / K4 CUDA kernels against their plain PyTorch twins, on the
+card; K4's whole path against the K2 + autograd chain.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -8,7 +9,8 @@ conftest.py:
 
 Tolerances (those of chip_smoke.py): colour / alpha 1e-3 absolute, survivor
 counts and columns exact, grads 1e-3 of each row's largest |grad| (the
-kernel sums in another order and adds across tiles with atomics).
+kernel sums in another order and adds across tiles with atomics); K4's
+dpose and the K4 path against the K2 chain 1e-3 of the largest |dpose|.
 """
 import numpy as np
 import pytest
@@ -16,8 +18,10 @@ import torch
 
 from eags_slam_torch.core.camera import Camera
 from eags_slam_torch.ops import composite_sorted as cs
+from eags_slam_torch.ops import rasterizer as R
 from eags_slam_torch.ops.rasterizer import (RasterConfig, _sorted_attrs,
                                             _v2_radius_cap, project_gaussians)
+from eags_slam_torch.slam.tracker import _rel_matrix
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +35,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(tile, seg_cap, n, device, seed=0):
+def _scene(n, device, seed):
     rng = np.random.default_rng(seed)
     means = np.stack([rng.uniform(-0.8, 0.8, n), rng.uniform(-0.6, 0.6, n),
                       rng.uniform(1.0, 3.0, n)], -1).astype(np.float32)
@@ -42,6 +46,11 @@ def _inputs(tile, seg_cap, n, device, seed=0):
         ls=np.log(rng.uniform(0.01, 0.06, (n, 3))).astype(np.float32),
         op=rng.uniform(-1.0, 3.0, (n, 1)).astype(np.float32),
         col=rng.uniform(0, 1, (n, 3)).astype(np.float32)).items()}
+    return t
+
+
+def _inputs(tile, seg_cap, n, device, seed=0):
+    t = _scene(n, device, seed)
     cfg = RasterConfig(tile=tile, dup_side=3, seg_cap=seg_cap, bands=3)
     proj = project_gaussians(t["means"], t["q"], t["ls"], t["op"],
                              torch.eye(4, device=device), CAM, cfg,
@@ -97,5 +106,66 @@ def test_autograd_function_launches_kernels(cuda_device):
     out[:, :5].sum().backward()
     torch.cuda.synchronize()
     assert cs.counts() == {"fwd_launches": 1, "bwd_launches": 1,
-                           "fwd_twin_calls": 0, "bwd_twin_calls": 0}
+                           "pose_launches": 0, "fwd_twin_calls": 0,
+                           "bwd_twin_calls": 0, "pose_twin_calls": 0}
     assert torch.isfinite(a.grad).all() and float(a.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("tile,seg_cap,n", [(16, 256, 600), (32, 1024, 1500),
+                                            (16, 128, 1500)])
+def test_pose_kernel_matches_twin_and_k2_chain(tile, seg_cap, n,
+                                               cuda_device):
+    """K4 against its twin on K1's residuals (full grid and a shuffled
+    subset), then the K4 path against the K2 + autograd chain on one loss;
+    the K4 path launches K1 and K4 once each and no twin."""
+    t = _scene(n, cuda_device, 1)
+    cfg = RasterConfig(tile=tile, dup_side=3, seg_cap=seg_cap, bands=3)
+    last_w2c = torch.eye(4, device=cuda_device)
+    last_w2c[0, 3] = 0.03
+    fs = R.freeze_sorted(t["means"], t["q"], t["ls"], t["op"], t["col"],
+                         last_w2c, CAM, cfg)
+    pv = torch.tensor([0.999, 0.01, -0.02, 0.015, 0.01, -0.02, 0.03],
+                      device=cuda_device)
+    tx = -(-CAM.width // tile)
+    num_tiles = tx * -(-CAM.height // tile)
+    gen = torch.Generator(device=cuda_device).manual_seed(tile)
+    for ids in (torch.arange(num_tiles, dtype=torch.int32,
+                             device=cuda_device),
+                torch.randperm(num_tiles, generator=gen,
+                               device=cuda_device)[: max(1, num_tiles // 3)]
+                .to(torch.int32)):
+        with torch.no_grad():
+            attrs = R._stack_reproj_rows(fs.e3d, R._pose_rel_w2c(pv, last_w2c),
+                                         CAM, cfg).contiguous()
+            out, cols = cs.composite_sorted_fwd(attrs, fs.seg_start,
+                                                fs.seg_cnt, ids, tile, tx, 3,
+                                                seg_cap)
+            jac = R._pose_jacobian(fs.e3d, pv, last_w2c, CAM, cfg)
+        dout = torch.randn(out.shape, generator=gen, device=cuda_device)
+        dout[:, 5:] = 0
+        gk = cs.pose_grad_sorted(attrs, jac, ids, out, cols, dout, tile, tx)
+        gt = cs.pose_grad_sorted_plain(attrs, jac, ids, out, cols, dout,
+                                       tile, tx)
+        gk2 = cs.pose_grad_sorted(attrs, jac, ids, out, cols, dout, tile, tx)
+        torch.cuda.synchronize()
+        scale = float(gt.abs().max())
+        assert scale > 0
+        assert float((gk - gt).abs().max()) <= 1e-3 * scale
+        assert torch.equal(gk, gk2)            # no atomics: run to run equal
+
+        def loss(o):
+            return (o.color.sum() + 0.3 * o.depth.sum() + (o.alpha ** 2).sum()
+                    + (o.color * o.color).sum())
+
+        qt = pv.clone().requires_grad_(True)
+        cs.reset_counts()
+        (d4,) = torch.autograd.grad(loss(R.render_frozen_sorted_tiles_pose(
+            fs, qt, last_w2c, ids, CAM, cfg)), qt)
+        torch.cuda.synchronize()
+        assert cs.counts() == {"fwd_launches": 1, "bwd_launches": 0,
+                               "pose_launches": 1, "fwd_twin_calls": 0,
+                               "bwd_twin_calls": 0, "pose_twin_calls": 0}
+        (d2,) = torch.autograd.grad(loss(R.render_frozen_sorted_tiles(
+            fs, last_w2c @ _rel_matrix(qt[:4], qt[4:]), ids, CAM, cfg)), qt)
+        scale = float(d2.abs().max())
+        assert float((d4 - d2).abs().max()) <= 1e-3 * scale
