@@ -6,27 +6,41 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   - CUDA must be present; card name and power limit
                 (nvidia-smi); TF32 off for matmuls and convolutions.
-  2. build    - nvcc builds K1, K2 and K4 from eags_slam_torch/csrc (one
-                nvcc per source, in parallel).
-  3. kernels  - K1 and K2 against their plain PyTorch twins at the
-                main-path shape (1200x680, tile 32, bands 3, seg_cap 1024) on
-                the synthetic room (>= 100k gaussians): full frame and a tile
-                subset; K4 against its twin and against the K2 + autograd
-                chain on the frozen-sorted tracking layout (1/8 tile subset
-                and full grid); max errors against the stated tolerances;
-                median kernel, twin and backward times; each kernel's bound.
+  2. build    - K1-K6 from eags_slam_torch/csrc: one nvcc per source, in
+                parallel, then one link.
+  3. kernels  - at the main-path shape (1200x680, tile 32) on the synthetic
+                room (>= 100k gaussians): K1 and K2 against their plain
+                PyTorch twins (bands 3, seg_cap 1024), full frame and a
+                shuffled 1/8 tile subset; K3 against K2's twin and K2 on the
+                same residuals; K4 against its twin and against the K2 +
+                autograd chain on the frozen-sorted tracking layout (1/8
+                subset and full grid); K5 and K6 against their twins on the
+                entry layout (dup_side 3, entry_cap_factor 4, max_per_tile
+                8192), full frame and the frozen binning at a shifted
+                tracking pose, K6 twice bit for bit; max errors against the
+                stated tolerances; median kernel, twin and backward times;
+                each kernel's bound.
   4. slice    - the port's GaussianSLAM, 12 frames of the bench protocol on
-                the synthetic room with const-speed tracking; K1/K2 launch
-                counts on that run (twins must not run); the port's
-                evaluator: ATE, and PSNR / SSIM / MS-SSIM / depth-L1 of the
-                saved submaps rendered at the estimated poses; FPS, track /
-                map ms, peak device memory.
-  5. c2f      - coarse-to-fine tracking: bench.py's protocol with loop
+                the synthetic room with const-speed tracking, the default
+                sorted configuration; K1/K2 launch counts on that run
+                (twins must not run); the port's evaluator: ATE, and PSNR /
+                SSIM / MS-SSIM / depth-L1 of the saved submaps rendered at
+                the estimated poses; FPS, track / map ms, peak device memory.
+  5. window   - the slice's 12 frames again with `mapping.rmw_window` on:
+                every sorted backward (tracking and mapping) through K3, no
+                K2 launch; the same gates and metrics, and the default
+                slice's FPS / ATE / PSNR beside them.
+  6. c2f      - coarse-to-fine tracking: bench.py's protocol with loop
                 closure off and the pose-contraction backward on, 24 frames
                 of synthetic_hard at bench.py's 1.5/72 orbit, the edge VO
                 giving the odometer candidate; K1/K2/K4 launches (twins must
                 not run), odometer wins, VO keyframes and ms, the evaluator's
                 metrics, FPS, track / map ms, peak memory.
+  7. entries  - the slice's protocol with EAGS_RCFG=backend=pallas for that
+                run: candidate scoring, frozen-binning tracking and the
+                plain mapping loop all through K5 / K6 (no K1-K4 launch, no
+                twin); the same metrics, and the slice's ATE / PSNR beside
+                them.
 Then the kernel summary line and the result line. The card line (from the
 device phase) comes first.
 
@@ -61,6 +75,13 @@ def emit(obj):
 #  - K4 path vs the K2 + autograd chain (the same loss): the same chain-rule
 #    sum in another association order, plus K2's atomics: max abs err
 #    <= 1e-3 x max |dpose| (the JAX golden test holds 2e-4 on the CPU).
+#  - K3 grads against K2's twin and against K2: the same sums, added into
+#    the global array in another order (window retires, atomics): per grad
+#    row 1e-3 x the row's max |grad|, as K2.
+#  - K5 outputs against the twin: as K1 (the same per-pair operations, the
+#    running sums in another order); entry counts exact.
+#  - K6 grads: as K2 per row (1e-3 x row max), exact zeros in the columns K5
+#    did not composite, and two runs equal bit for bit (no atomics).
 TOL = {"rgb_alpha_abs": 1e-3, "depth_abs": 1e-3, "depth_rel": 1e-4,
        "logt_abs": 1e-3, "logt_rel": 1e-4, "eff_mismatch_frac": 5e-3,
        "grad_rel_to_rowmax": 1e-3, "dpose_rel_to_max": 1e-3,
@@ -68,16 +89,25 @@ TOL = {"rgb_alpha_abs": 1e-3, "depth_abs": 1e-3, "depth_rel": 1e-4,
 REPLACES = {
     "K1": "eags_slam_tpu/ops/rasterizer_pallas_v2.py:260",
     "K2": "eags_slam_tpu/ops/rasterizer_pallas_v2.py:491",
+    "K3": "eags_slam_tpu/ops/rasterizer_pallas_v2.py:649",
     "K4": "eags_slam_tpu/ops/rasterizer_pallas_v2.py:1056",
+    "K5": "eags_slam_tpu/ops/rasterizer_pallas.py:95",
+    "K6": "eags_slam_tpu/ops/rasterizer_pallas.py:180",
 }
 SOURCES = {
     "K1": "eags_slam_torch/csrc/composite_sorted_fwd.cu",
     "K2": "eags_slam_torch/csrc/composite_sorted_bwd.cu",
+    "K3": "eags_slam_torch/csrc/composite_sorted_bwd_window.cu",
     "K4": "eags_slam_torch/csrc/pose_grad_sorted.cu",
+    "K5": "eags_slam_torch/csrc/composite_entries_fwd.cu",
+    "K6": "eags_slam_torch/csrc/composite_entries_bwd.cu",
 }
 LAUNCH_KEYS = {"K1": "fwd_launches", "K2": "bwd_launches",
-               "K4": "pose_launches"}
-TWIN_KEYS = ("fwd_twin_calls", "bwd_twin_calls", "pose_twin_calls")
+               "K3": "window_launches", "K4": "pose_launches",
+               "K5": "entries_fwd_launches", "K6": "entries_bwd_launches"}
+TWIN_KEYS = ("fwd_twin_calls", "bwd_twin_calls", "window_twin_calls",
+             "pose_twin_calls", "entries_fwd_twin_calls",
+             "entries_bwd_twin_calls")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet), the yardstick of
 # every bound_ms: HBM3 bandwidth and FP32 outside the tensor cores.
@@ -89,17 +119,20 @@ FP32_OPS_PER_S = 67e12
 # the test); a pair whose alpha passes the 1/255 test then needs K1's
 # exp / clip / log1p / transmittance / 4 colour sums (16), K2's replay and
 # 10 gradient terms (55), or K4's replay and 6 gradient terms (47). K4 adds
-# 42 multiply-adds (84 operations) per survivor for the contraction.
+# 42 multiply-adds (84 operations) per survivor for the contraction. K3
+# replays as K2, K5 composites as K1 and K6 replays as K2.
 OPS_TEST = 10
-OPS_CONTRIB = {"K1": 16, "K2": 55, "K4": 47}
+OPS_CONTRIB = {"K1": 16, "K2": 55, "K3": 55, "K4": 47, "K5": 16, "K6": 55}
 OPS_K4_CONTRACT = 84
 
 
 # The slice: 17000 gaussians a wall (a 102,000-gaussian room), 12 frames
 # (the frame-0 init and mapped frames 5, 10, 11); the c2f phase: 24 frames
 # (mapped frames 0, 5, 10, 15, the submap boundary at 20 with its warm
-# start, and 23); kernels timed as the median of REPS launches.
+# start, and 23); kernels timed as the median of REPS launches. K3's blocks
+# take GROUP tiles (the SLAM's `raster_group` default).
 PER_WALL = 17000
+GROUP = 8
 N_FRAMES = 12
 C2F_FRAMES = 24
 REPS = 20
@@ -417,10 +450,23 @@ def phase_kernels(per_wall: int, reps: int):
                                       cfg.tile, tiles_x)
         g_t = cs.composite_sorted_bwd_plain(attrs, tile_ids, out_t, cols_t,
                                             dout, cfg.tile, tiles_x)
+        g_w = cs.composite_sorted_bwd_window(
+            attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
+            tiles_x, cfg.bands, cfg.seg_cap, GROUP)
         torch.cuda.synchronize()
         ok_b, rep_b, worst = _compare_bwd(g_k, g_t)
+        ok_w, rep_w, worst_w = _compare_bwd(g_w, g_t)
+        ok_wk, rep_wk, worst_wk = _compare_bwd(g_w, g_k)
         res = {"fwd_ok": ok_f, "fwd": rep_f, "bwd_ok": ok_b, "bwd": rep_b,
+               "window_ok": ok_w and ok_wk, "window_vs_twin": rep_w,
+               "window_vs_k2_rel_to_rowmax": worst_wk,
                "tiles": int(tile_ids.shape[0])}
+        if label == "subset":
+            res["k2_ms"] = _median_ms(lambda: cs.composite_sorted_bwd(
+                attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
+            res["k3_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_window(
+                attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
+                tiles_x, cfg.bands, cfg.seg_cap, GROUP), reps)
         if label == "full":
             pairs, contrib, _ = _work(attrs, tile_ids, out_k, cols_k,
                                       cfg.tile, tiles_x)
@@ -433,6 +479,9 @@ def phase_kernels(per_wall: int, reps: int):
             res["k2_plain_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_plain(
                 attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x),
                 max(3, reps // 4))
+            res["k3_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_window(
+                attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
+                tiles_x, cfg.bands, cfg.seg_cap, GROUP), reps)
             res["pairs"], res["contributing_pairs"] = pairs, contrib
             summary = {
                 "K1": {"max_abs_err": max(rep_f[c]["max_abs"] for c in
@@ -450,17 +499,29 @@ def phase_kernels(per_wall: int, reps: int):
                                         g_k),
                                 OPS_TEST * pairs
                                 + OPS_CONTRIB["K2"] * contrib)},
+                # K3's plain version is K2's twin (the same sums).
+                "K3": {"max_abs_err": max(rep_w[c]["max_abs"] for c in
+                                          rep_w if isinstance(rep_w[c], dict)),
+                       "ms": res["k3_ms"], "plain_ms": res["k2_plain_ms"],
+                       "max_rel_to_rowmax": worst_w,
+                       **_bound(_nbytes(attrs, seg_start, tile_ids, out_k,
+                                        cols_k, dout, g_w),
+                                OPS_TEST * pairs
+                                + OPS_CONTRIB["K3"] * contrib)},
             }
         results[label] = res
-        all_ok &= ok_f and ok_b
+        all_ok &= ok_f and ok_b and ok_w and ok_wk
     ok4, rep4, summary["K4"] = _check_k4(cfg, cam, gmap, subset, T, reps,
                                          gen)
-    all_ok &= ok4
+    ok56, rep56, k56 = _check_entries(cam, gmap, reps, gen)
+    summary.update(k56)
+    all_ok &= ok4 and ok56
     emit({"phase": "kernels", "ok": all_ok, "shape": {
         "H": 680, "W": 1200, "tile": cfg.tile, "bands": cfg.bands,
-        "seg_cap": cfg.seg_cap, "tiles": T, "npad": int(attrs.shape[1]),
-        "scene_gaussians": n_scene, "visible_gaussians": n_vis},
-        "tolerances": TOL, **results, "k4": rep4,
+        "seg_cap": cfg.seg_cap, "group": GROUP, "tiles": T,
+        "npad": int(attrs.shape[1]), "scene_gaussians": n_scene,
+        "visible_gaussians": n_vis},
+        "tolerances": TOL, **results, "k4": rep4, "entries": rep56,
         "bounds": {k: {f: v[f] for f in ("bound_ms", "bound_by", "bytes",
                                          "ops")}
                    for k, v in summary.items()}})
@@ -558,23 +619,173 @@ def _check_k4(cfg, cam, gmap, subset, T, reps, gen):
     return ok, rep, summary
 
 
-def _run_slam(config, n_frames: int, out_dir: str, phase: str):
+def _entries_bytes(start, count, out, grads=None) -> int:
+    """The bytes K5 (grads None) or K6 moves on this run's data: rows 0-9 of
+    the entry columns in the chunks K5 composited, start and count, and
+    K5's (T, 8, PX) output; K6 instead reads out row 5 and two count cells
+    a tile and dout rows 0-4, and writes its whole (16, Epad) output."""
+    import torch
+
+    from eags_slam_torch.ops.composite_sorted import CHUNK
+
+    t, _, px = out.shape
+    read = int(torch.minimum(count.long(), out[:, 6, 0].long() * CHUNK).sum())
+    words = 10 * read + 2 * t
+    if grads is None:
+        words += out.numel()
+    else:
+        words += t * (6 * px + 2) + grads.numel()
+    return 4 * words
+
+
+def _compare_entries(out_k, out_t):
+    """K5 against its twin: channels 0-5 as K1's check, counts exact,
+    chunks used may differ on at most 0.5% of tiles."""
+    import torch
+
+    rep, ok = {}, True
+    for ch, name in enumerate(("r", "g", "b", "depth", "alpha", "log_t")):
+        d = (out_k[:, ch] - out_t[:, ch]).abs()
+        ref = out_t[:, ch].abs()
+        if name == "depth":
+            bad = d > TOL["depth_abs"] + TOL["depth_rel"] * ref
+        elif name == "log_t":
+            bad = (d > TOL["logt_abs"] + TOL["logt_rel"] * ref) & (
+                out_t[:, 5] > -11.5)
+        else:
+            bad = d > TOL["rgb_alpha_abs"]
+        rep[name] = {"max_abs": float(d.max()), "n_bad": int(bad.sum())}
+        ok &= rep[name]["n_bad"] == 0
+    rep["counts_equal"] = bool(torch.equal(out_k[:, 7], out_t[:, 7]))
+    rep["eff_mismatch_frac"] = float(
+        (out_k[:, 6, 0] != out_t[:, 6, 0]).float().mean())
+    rep["mean_entries"] = float(out_t[:, 7, 0].mean())
+    rep["max_entries"] = int(out_t[:, 7, 0].max())
+    ok &= rep["counts_equal"] and \
+        rep["eff_mismatch_frac"] <= TOL["eff_mismatch_frac"]
+    return ok, rep
+
+
+def _check_entries(cam, gmap, reps, gen):
+    """K5 / K6 at the main-path shape of the `pallas` backend (tile 32,
+    dup_side 3, entry_cap_factor 4, max_per_tile 8192) on the kernels map:
+    the render layout at the map's pose and the frozen binning reprojected
+    at the K4 check's shifted tracking pose. Each against its twin; K6 twice
+    bit for bit and zero in the columns K5 did not composite; times and
+    bounds from the full-frame render layout."""
+    import torch
+
+    from eags_slam_torch.ops import composite_entries as ce
+    from eags_slam_torch.ops import rasterizer as R
+
+    xyz, q, log_s, opac, colors, w2c = gmap
+    dev = xyz.device
+    cfg = R.RasterConfig(tile=32, dup_side=3, entry_cap_factor=4,
+                         max_per_tile=8192, backend="pallas")
+    tiles_x = -(-cam.width // cfg.tile)
+    with torch.no_grad():
+        proj = R.project_gaussians(xyz, q, log_s, opac, w2c, cam, cfg)
+        slot, pstart, count = R._build_slots(proj, cam, cfg)
+        render_entries = R._gather_entries(R._with_sentinel(
+            R._stack_attrs(proj, colors)), slot).contiguous()
+        fb = R.freeze_binning(xyz, q, log_s, opac, colors, w2c, cam, cfg)
+        pv = torch.tensor([0.9995, 0.01, -0.02, 0.015, 0.01, -0.02, 0.03],
+                          device=dev)
+        rows = R._reproject_rows(fb.e3d, R._pose_rel_w2c(pv, w2c), cam, cfg)
+        frozen_entries = torch.cat([torch.stack(rows[:10]), torch.zeros(
+            (6, fb.e3d.shape[1]), device=dev)]).contiguous()
+    rep, ok, summary = {}, True, {}
+    for label, ent, ps, cnt in (("render", render_entries, pstart, count),
+                                ("frozen", frozen_entries, fb.pstart,
+                                 fb.count)):
+        out_k = ce.composite_entries_fwd(ent, ps, cnt, cfg.tile, tiles_x)
+        out_t = ce.composite_entries_fwd_plain(ent, ps, cnt, cfg.tile,
+                                               tiles_x)
+        torch.cuda.synchronize()
+        ok_f, rep_f = _compare_entries(out_k, out_t)
+        dout = torch.randn(out_t.shape, generator=gen, device=dev)
+        dout[:, 5:] = 0.0
+        g_k = ce.composite_entries_bwd(ent, ps, cnt, out_k, dout, cfg.tile,
+                                       tiles_x)
+        g_k2 = ce.composite_entries_bwd(ent, ps, cnt, out_k, dout, cfg.tile,
+                                        tiles_x)
+        g_t = ce.composite_entries_bwd_plain(ent, ps, cnt, out_k, dout,
+                                             cfg.tile, tiles_x)
+        torch.cuda.synchronize()
+        ok_b, rep_b, worst = _compare_bwd(g_k, g_t)
+        lane = torch.arange(ent.shape[1], device=dev)
+        tile_of = torch.clamp(torch.searchsorted(ps, lane.to(torch.int32),
+                                                 right=True) - 1, min=0)
+        off = lane - ps.long()[tile_of]
+        visited = (off >= 0) & (off < 128 * out_k[tile_of, 6, 0].long())
+        zeros_ok = float(g_k[:, ~visited].abs().max()) == 0.0
+        det_ok = bool(torch.equal(g_k, g_k2))
+        r = {"tiles": int(ps.shape[0]), "epad": int(ent.shape[1]),
+             "fwd_ok": ok_f, "fwd": rep_f, "bwd_ok": ok_b, "bwd": rep_b,
+             "unvisited_zero": zeros_ok, "k6_deterministic": det_ok}
+        ok &= ok_f and ok_b and zeros_ok and det_ok
+        if label == "render":
+            cols, tile_ids = ce._segments(ps, cnt)
+            pairs, contrib, _ = _work(ent, tile_ids, out_k, cols, cfg.tile,
+                                      tiles_x)
+            r["k5_ms"] = _median_ms(lambda: ce.composite_entries_fwd(
+                ent, ps, cnt, cfg.tile, tiles_x), reps)
+            r["k5_plain_ms"] = _median_ms(
+                lambda: ce.composite_entries_fwd_plain(
+                    ent, ps, cnt, cfg.tile, tiles_x), max(3, reps // 4))
+            r["k6_ms"] = _median_ms(lambda: ce.composite_entries_bwd(
+                ent, ps, cnt, out_k, dout, cfg.tile, tiles_x), reps)
+            r["k6_plain_ms"] = _median_ms(
+                lambda: ce.composite_entries_bwd_plain(
+                    ent, ps, cnt, out_k, dout, cfg.tile, tiles_x),
+                max(3, reps // 4))
+            r["pairs"], r["contributing_pairs"] = pairs, contrib
+            summary = {
+                "K5": {"max_abs_err": max(rep_f[c]["max_abs"] for c in
+                                          ("r", "g", "b", "depth", "alpha")),
+                       "ms": r["k5_ms"], "plain_ms": r["k5_plain_ms"],
+                       **_bound(_entries_bytes(ps, cnt, out_k),
+                                OPS_TEST * pairs
+                                + OPS_CONTRIB["K5"] * contrib)},
+                "K6": {"max_abs_err": max(rep_b[c]["max_abs"] for c in
+                                          rep_b if isinstance(rep_b[c], dict)),
+                       "ms": r["k6_ms"], "plain_ms": r["k6_plain_ms"],
+                       "max_rel_to_rowmax": worst,
+                       **_bound(_entries_bytes(ps, cnt, out_k, g_k),
+                                OPS_TEST * pairs
+                                + OPS_CONTRIB["K6"] * contrib)},
+            }
+        rep[label] = r
+    return ok, rep, summary
+
+
+def _run_slam(config, n_frames: int, out_dir: str, phase: str,
+              rcfg_env: str = ""):
     """Drive GaussianSLAM.run on the config with the launch counts set to 0
-    just before and read just after; then the port's evaluator."""
+    just before and read just after; then the port's evaluator.
+    `rcfg_env`: EAGS_RCFG for this GaussianSLAM (read when it is built)."""
+    import os
+
     import torch
 
     from eags_slam_torch.evaluation.evaluator import Evaluator
+    from eags_slam_torch.ops import composite_entries as ce
     from eags_slam_torch.ops import composite_sorted as cs
     from eags_slam_torch.slam.gaussian_slam import GaussianSLAM
 
-    gslam = GaussianSLAM(config)
+    os.environ["EAGS_RCFG"] = rcfg_env
+    try:
+        gslam = GaussianSLAM(config)
+    finally:
+        del os.environ["EAGS_RCFG"]
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cs.reset_counts()
+        ce.reset_counts()
         report = gslam.run()
         torch.cuda.synchronize()
-        launches = cs.counts()
+        launches = {**cs.counts(), **ce.counts()}
         peak = torch.cuda.max_memory_allocated()
         results = Evaluator(out_dir, gslam.dataset, config).run()
         traj, rend = results["trajectory"], results["rendering"]
@@ -593,20 +804,38 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str):
             "map_ms": report["map_ms_avg"],
             "peak_mem_gb": peak / 2**30, "tracker": report["tracker"],
             "map_frames": report.get("map_frames")}
-    ok = (launches["fwd_launches"] > 0 and launches["bwd_launches"] > 0
-          and all(launches[k] == 0 for k in TWIN_KEYS)
+    ok = (all(launches[k] == 0 for k in TWIN_KEYS)
           and report["frames"] == n_frames)
     return ok, line, report, gslam
 
 
-def phase_slice(per_wall: int, n_frames: int, out_dir: str):
-    ok, line, _, gslam = _run_slam(bench_config(out_dir, n_frames, per_wall),
-                                   n_frames, out_dir, "slice")
-    ok &= line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0
-    emit({**line, "ok": ok, "scene_gaussians": gslam.dataset.n_scene})
+def phase_slice(per_wall: int, n_frames: int, out_dir: str,
+                window: bool = False, slice_line=None):
+    """The slice, on the default sorted configuration (K1 + K2) or, as the
+    `window` phase, with `mapping.rmw_window` on, which routes every
+    backward of the sorted path (tracking without K4, and mapping) through
+    K3; the window line prints the default slice's numbers beside its own.
+    Gate: K1 and the backward's kernel launched (no K2 launch in the window
+    phase), no twin; every frame ran; ATE < 5 cm and PSNR > 20 dB."""
+    phase = "window" if window else "slice"
+    config = bench_config(out_dir, n_frames, per_wall)
+    config["mapping"]["rmw_window"] = window
+    ok, line, _, gslam = _run_slam(config, n_frames, out_dir, phase)
+    la = line["launches"]
+    ok &= (gslam.rcfg.rmw_window == window and la["fwd_launches"] > 0
+           and (la["window_launches"] > 0 and la["bwd_launches"] == 0
+                if window else la["bwd_launches"] > 0)
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0)
+    extra = {}
+    if window:
+        extra["default_slice"] = None if slice_line is None else {
+            k: slice_line[k] for k in ("fps", "track_ms", "map_ms", "ate_cm",
+                                       "psnr_db")}
+    emit({**line, "ok": ok, "scene_gaussians": gslam.dataset.n_scene,
+          **extra})
     if not ok:
-        raise SystemExit("slice check failed")
-    return line["launches"]
+        raise SystemExit(phase + " check failed")
+    return line
 
 
 def phase_c2f(n_frames: int, out_dir: str):
@@ -619,7 +848,9 @@ def phase_c2f(n_frames: int, out_dir: str):
                                         n_frames, out_dir, "c2f")
     wins = report["tracker"]["init_pose_cnt"].get("odometer", 0)
     vo = report["vo"]
-    ok &= (line["launches"]["pose_launches"] > 0 and wins >= 1
+    ok &= (line["launches"]["fwd_launches"] > 0
+           and line["launches"]["bwd_launches"] > 0
+           and line["launches"]["pose_launches"] > 0 and wins >= 1
            and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0)
     # The submap boundary at frame 20 starts submap 1 from the visible
     # gaussians of submap 0 when enough are visible (init_warm_start).
@@ -629,12 +860,40 @@ def phase_c2f(n_frames: int, out_dir: str):
           "vo_dt_ms": vo["mean_dt_ms"]})
     if not ok:
         raise SystemExit("c2f check failed")
-    return line["launches"]
+    return line
+
+
+def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
+    """The slice's protocol on the entry-binned backend (EAGS_RCFG=
+    backend=pallas for this run): candidate scoring, frozen-binning
+    tracking on the full image and the plain mapping loop through K5 / K6.
+    Gate: K5 and K6 launched, no K1-K4 launch, no twin; every frame ran;
+    ATE < 5 cm and PSNR > 20 dB. The slice's ATE / PSNR on the same frames
+    (sorted kernels) are printed beside these."""
+    ok, line, _, gslam = _run_slam(bench_config(out_dir, n_frames, per_wall),
+                                   n_frames, out_dir, "entries",
+                                   rcfg_env="backend=pallas")
+    la = line["launches"]
+    ok &= (gslam.rcfg.backend == "pallas"
+           and la["entries_fwd_launches"] > 0
+           and la["entries_bwd_launches"] > 0
+           and all(la[LAUNCH_KEYS[k]] == 0 for k in ("K1", "K2", "K3", "K4"))
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0)
+    side = {"entries": {"ate_cm": line["ate_cm"], "psnr_db": line["psnr_db"]},
+            "sorted": None if slice_line is None else {
+                "ate_cm": slice_line["ate_cm"],
+                "psnr_db": slice_line["psnr_db"]}}
+    emit({**line, "ok": ok, "scene_gaussians": gslam.dataset.n_scene,
+          "same_frames": side})
+    if not ok:
+        raise SystemExit("entries check failed")
+    return line
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="device,build,kernels,slice,c2f")
+    p.add_argument("--phases",
+                   default="device,build,kernels,slice,window,c2f,entries")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -649,16 +908,24 @@ def main():
     # Launches summed over the main-path phases that ran (each counted from
     # 0 just before its run); null when none ran.
     runs = []
+    slice_line = None
     if "slice" in phases:
-        runs.append(phase_slice(PER_WALL, N_FRAMES, args.out + "_slice"))
+        slice_line = phase_slice(PER_WALL, N_FRAMES, args.out + "_slice")
+        runs.append(slice_line)
+    if "window" in phases:
+        runs.append(phase_slice(PER_WALL, N_FRAMES, args.out + "_window",
+                                window=True, slice_line=slice_line))
     if "c2f" in phases:
         runs.append(phase_c2f(C2F_FRAMES, args.out + "_c2f"))
+    if "entries" in phases:
+        runs.append(phase_entries(PER_WALL, N_FRAMES, args.out + "_entries",
+                                  slice_line))
     kernels = []
     for kid, lkey in LAUNCH_KEYS.items():
         s = summary.get(kid, {})
         kernels.append({"name": kid, "route": "cuda", "source": SOURCES[kid],
                         "replaces": REPLACES[kid],
-                        "launches": sum(r[lkey] for r in runs)
+                        "launches": sum(r["launches"][lkey] for r in runs)
                         if runs else None,
                         "max_abs_err": s.get("max_abs_err"),
                         "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),

@@ -1,8 +1,10 @@
 // The reverse replay step shared by the backward kernels K2
-// (composite_sorted_bwd.cu) and K4 (pose_grad_sorted.cu).
+// (composite_sorted_bwd.cu), K3 (composite_sorted_bwd_window.cu), K4
+// (pose_grad_sorted.cu) and K6 (composite_entries_bwd.cu).
 //
-// Both kernels walk a tile's survivors back to front, each thread holding
-// its pixels' state in registers: the transmittance after the survivor
+// Each kernel walks a tile's survivors (K6: its entries) back to front,
+// each thread holding its pixels' state in registers: the transmittance
+// after the survivor
 // (log_after) and the running "behind" sum b of alpha T q over the
 // survivors already replayed. For one (pixel, survivor) pair this step
 // recomputes alpha exactly as the forward K1 did and, when the survivor
@@ -11,7 +13,9 @@
 //   log T_before = log T_after - log(1 - alpha), T = exp(log T_before),
 //   q = dout_rgbd . feat + dout_alpha,
 //   d_alpha = T q - b / max(1 - alpha, 1e-6),   b += alpha T q.
-// It mirrors eags_slam_tpu/ops/rasterizer_pallas_v2.py::_replay_chunks.
+// It mirrors eags_slam_tpu/ops/rasterizer_pallas_v2.py::_replay_chunks and
+// the replay of rasterizer_pallas.py::_bwd_kernel, whose alphas both follow
+// rasterizer_pallas.py::_chunk_alpha.
 #pragma once
 
 namespace eags {

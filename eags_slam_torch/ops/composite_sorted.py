@@ -1,11 +1,13 @@
-"""Sorted-backend compositing: the K1 (forward), K2 (backward) and K4
-(pose-contraction backward) kernels, their plain PyTorch twins, and the
-autograd.Function that joins K1 and K2.
+"""Sorted-backend compositing: the K1 (forward), K2 (backward), K3
+(windowed backward) and K4 (pose-contraction backward) kernels, their plain
+PyTorch twins, the autograd.Function that joins K1 with K2 or K3, and the
+build of every kernel in `csrc/`.
 
 Replaces `eags_slam_tpu.ops.rasterizer_pallas_v2.composite_sorted`
-(`_fwd_kernel`, `_bwd_kernel` with window=False, `_replay_chunks`),
-`pose_grad_sorted` (`_pose_bwd_kernel`) and the constants + `_chunk_alpha`
-of `rasterizer_pallas.py`.
+(`_fwd_kernel`, `_bwd_kernel` with window=False and window=True,
+`_replay_chunks`, `_bwd_rmw_window`), `pose_grad_sorted`
+(`_pose_bwd_kernel`) and the constants + `_chunk_alpha` of
+`rasterizer_pallas.py`.
 
 Semantics (identical in kernel and twin):
   - attrs (16, Npad) f32, rows 0 u, 1 v, 2-4 conic a/b/c, 5 opacity,
@@ -30,6 +32,11 @@ Semantics (identical in kernel and twin):
   - The backward mirrors `_replay_chunks` term by term, including dop =
     sum(d_alpha * g) with g = exp(min(power, 0)) where alpha was clipped at
     0.99, and the max(1 - alpha, 1e-6) guard. Grads land in (16, Npad).
+  - K3 computes K2's grads with another accumulation (`rmw_window`): a
+    block takes `group` consecutive entries of tile_ids and keeps, per
+    band, a window of the band's seg_cap lanes in shared memory, adding
+    each lane to the global array once, when the window moves past it.
+    The sums are K2's, so K2's twin is K3's plain version.
   - K4 replays as K2 does but keeps only the 6 pose-dependent rows
     (`GROWS`: u, v, conic a/b/c, depth) and contracts each survivor's
     totals with its pose jacobian jac (48, Npad), row p * 6 + ch for pose
@@ -38,9 +45,10 @@ Semantics (identical in kernel and twin):
 
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel (built from `csrc/` at first use) or raises. There is no other
-fallback. `fwd_launches` / `bwd_launches` / `pose_launches` count kernel
-launches; `fwd_twin_calls` / `bwd_twin_calls` / `pose_twin_calls` count
-twin calls.
+fallback. `fwd_launches` / `bwd_launches` / `window_launches` /
+`pose_launches` count kernel launches; `fwd_twin_calls` / `bwd_twin_calls`
+/ `window_twin_calls` / `pose_twin_calls` count twin calls (a K3 call on
+CPU tensors runs K2's twin and counts as `window_twin_calls`).
 """
 from __future__ import annotations
 
@@ -67,26 +75,33 @@ PJ = 6                       # pose-dependent attr rows per pose parameter
 P_MAX = 8                    # pose parameters, padded (7 used)
 GROWS = (0, 1, 2, 3, 4, 9)   # attr rows matching the PJ jacobian channels
 
+MAX_BANDS = 8
+
 fwd_launches = 0
 bwd_launches = 0
+window_launches = 0
 pose_launches = 0
 fwd_twin_calls = 0
 bwd_twin_calls = 0
+window_twin_calls = 0
 pose_twin_calls = 0
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches, pose_launches
-    global fwd_twin_calls, bwd_twin_calls, pose_twin_calls
-    fwd_launches = bwd_launches = pose_launches = 0
-    fwd_twin_calls = bwd_twin_calls = pose_twin_calls = 0
+    global fwd_launches, bwd_launches, window_launches, pose_launches
+    global fwd_twin_calls, bwd_twin_calls, window_twin_calls, pose_twin_calls
+    fwd_launches = bwd_launches = window_launches = pose_launches = 0
+    fwd_twin_calls = bwd_twin_calls = window_twin_calls = 0
+    pose_twin_calls = 0
 
 
 def counts() -> dict:
     return {"fwd_launches": fwd_launches, "bwd_launches": bwd_launches,
+            "window_launches": window_launches,
             "pose_launches": pose_launches,
             "fwd_twin_calls": fwd_twin_calls,
             "bwd_twin_calls": bwd_twin_calls,
+            "window_twin_calls": window_twin_calls,
             "pose_twin_calls": pose_twin_calls}
 
 
@@ -174,10 +189,18 @@ def composite_sorted_fwd_plain(attrs, seg_start, seg_cnt, tile_ids,
     """Plain PyTorch twin of K1. Returns (out (S, 8, PX), cols (S, capt))."""
     global fwd_twin_calls
     fwd_twin_calls += 1
-    s = tile_ids.shape[0]
-    px = tile * tile
     cols, n_surv = _survivors(attrs, seg_start, seg_cnt, tile_ids, tile,
                               tiles_x, bands, seg_cap)
+    return _composite_cols(attrs, cols, n_surv, tile_ids, tile,
+                           tiles_x), cols
+
+
+def _composite_cols(attrs, cols, n_surv, tile_ids, tile: int, tiles_x: int):
+    """Front-to-back compositing of each tile's first `n_surv` columns of
+    `cols` (S, L), in chunks of 128 with the tile-wide stop. Returns out
+    (S, 8, PX); channel 7 holds n_surv."""
+    s = tile_ids.shape[0]
+    px = tile * tile
     pu, pv = _pixel_coords(tile_ids, tile, tiles_x)
     num_chunks = (n_surv + CHUNK - 1) // CHUNK
     log_t = torch.zeros((s, px), dtype=torch.float32, device=attrs.device)
@@ -198,14 +221,13 @@ def composite_sorted_fwd_plain(attrs, seg_start, seg_cnt, tile_ids,
         acc = torch.where(m[:, :, None], acc + contrib, acc)
         log_t = torch.where(m, log_t + log1m.sum(-1), log_t)
         eff = eff + active.long()
-    out = torch.cat([
+    return torch.cat([
         acc.permute(0, 2, 1),
         (1.0 - torch.exp(log_t))[:, None],
         log_t[:, None],
         eff.to(torch.float32)[:, None, None].expand(s, 1, px),
         n_surv.to(torch.float32)[:, None, None].expand(s, 1, px),
     ], dim=1).contiguous()
-    return out, cols
 
 
 @torch.no_grad()
@@ -295,7 +317,8 @@ def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("composite_sorted_fwd.cu", "composite_sorted_bwd.cu",
-           "pose_grad_sorted.cu")
+           "composite_sorted_bwd_window.cu", "pose_grad_sorted.cu",
+           "composite_entries_fwd.cu", "composite_entries_bwd.cu")
 HEADERS = ("replay.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eags_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -372,9 +395,16 @@ def load_kernels(verbose: bool = False):
     lib.eags_composite_sorted_bwd.argtypes = [P, L, P, I, I, I, I, P, P, P,
                                               P, P]
     lib.eags_composite_sorted_bwd.restype = I
+    lib.eags_composite_sorted_bwd_window.argtypes = [
+        P, L, P, I, I, P, I, I, I, I, I, P, P, P, P, P]
+    lib.eags_composite_sorted_bwd_window.restype = I
     lib.eags_pose_grad_sorted.argtypes = [P, P, L, P, I, I, I, I, P, P, P,
                                           P, P]
     lib.eags_pose_grad_sorted.restype = I
+    lib.eags_composite_entries_fwd.argtypes = [P, L, P, P, I, I, I, P, P]
+    lib.eags_composite_entries_fwd.restype = I
+    lib.eags_composite_entries_bwd.argtypes = [P, L, P, I, I, I, P, P, P, P]
+    lib.eags_composite_entries_bwd.restype = I
     _LIB = lib
     return lib
 
@@ -462,6 +492,49 @@ def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
     return grads
 
 
+def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
+                                tile: int, tiles_x: int, bands: int,
+                                seg_cap: int, group: int):
+    """K3 on CUDA tensors; on CPU tensors K2's twin, which is K3's plain
+    version (the same sums). `seg_start` (T, bands) gives each tile's band
+    windows; a block takes `group` consecutive entries of tile_ids. Returns
+    grads (16, Npad) f32 (lanes leave a block through global atomicAdd:
+    the last bits vary from run to run)."""
+    if attrs.device.type == "cpu":
+        global window_twin_calls
+        window_twin_calls += 1
+        return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
+    if attrs.device.type != "cuda":
+        raise RuntimeError(f"composite_sorted: no kernel for device "
+                           f"{attrs.device}")
+    global window_launches
+    lib = load_kernels()
+    for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
+                             (seg_start, "seg_start", torch.int32, 2),
+                             (tile_ids, "tile_ids", torch.int32, 1),
+                             (out, "out", torch.float32, 3),
+                             (cols, "cols", torch.int32, 2),
+                             (dout, "dout", torch.float32, 3)):
+        _check(t, name, dt, dim)
+    if (bands * seg_cap > MAX_CAPT or bands > MAX_BANDS or seg_cap % CHUNK
+            or group < 1 or seg_start.shape[1] != bands):
+        raise ValueError(f"K3 takes bands <= {MAX_BANDS}, bands*seg_cap <= "
+                         f"{MAX_CAPT}, seg_cap a multiple of {CHUNK}, "
+                         f"group >= 1; got {bands}, {seg_cap}, {group}")
+    grads = torch.zeros_like(attrs)
+    s = tile_ids.shape[0]
+    if s == 0:
+        return grads
+    err = lib.eags_composite_sorted_bwd_window(
+        attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(), bands,
+        seg_cap, tile_ids.data_ptr(), s, group, tile, tiles_x, cols.shape[1],
+        out.data_ptr(), cols.data_ptr(), dout.data_ptr(), grads.data_ptr(),
+        torch.cuda.current_stream(attrs.device).cuda_stream)
+    _cuda_check(err, "K3 launch")
+    window_launches += 1
+    return grads
+
+
 def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
                      tiles_x: int):
     """K4 on CUDA tensors, the plain twin on CPU tensors. `attrs`, `out`,
@@ -503,34 +576,43 @@ def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
 
 class CompositeSorted(torch.autograd.Function):
     """Differentiable w.r.t. attrs rows 0-9 (row 10, the radius, only
-    gates coverage and gets no gradient, as in the JAX version)."""
+    gates coverage and gets no gradient, as in the JAX version). The
+    backward is K2, or K3 with `rmw_window`."""
 
     @staticmethod
     def forward(ctx, attrs, seg_start, seg_cnt, tile_ids, tile, tiles_x,
-                bands, seg_cap):
+                bands, seg_cap, group, rmw_window):
         attrs = attrs.contiguous()
         out, cols = composite_sorted_fwd(attrs, seg_start, seg_cnt,
                                          tile_ids, tile, tiles_x, bands,
                                          seg_cap)
-        ctx.save_for_backward(attrs, tile_ids, out, cols)
-        ctx.geom = (tile, tiles_x)
+        ctx.save_for_backward(attrs, seg_start, tile_ids, out, cols)
+        ctx.geom = (tile, tiles_x, bands, seg_cap, group, rmw_window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        attrs, tile_ids, out, cols = ctx.saved_tensors
-        tile, tiles_x = ctx.geom
-        grads = composite_sorted_bwd(attrs, tile_ids, out, cols,
-                                     dout.contiguous(), tile, tiles_x)
-        return grads, None, None, None, None, None, None, None
+        attrs, seg_start, tile_ids, out, cols = ctx.saved_tensors
+        tile, tiles_x, bands, seg_cap, group, rmw_window = ctx.geom
+        if rmw_window:
+            grads = composite_sorted_bwd_window(
+                attrs, seg_start, tile_ids, out, cols, dout.contiguous(),
+                tile, tiles_x, bands, seg_cap, group)
+        else:
+            grads = composite_sorted_bwd(attrs, tile_ids, out, cols,
+                                         dout.contiguous(), tile, tiles_x)
+        return (grads,) + (None,) * 9
 
 
 def composite_sorted(attrs_sorted, seg_start, seg_cnt, tile_ids, tile: int,
-                     tiles_x: int, bands: int, seg_cap: int):
+                     tiles_x: int, bands: int, seg_cap: int, group: int = 16,
+                     rmw_window: bool = False):
     """attrs_sorted (16, Npad) centre-tile sorted; tile_ids (S,) selects the
-    tiles. Returns (S, 8, PX) tile images (channels: see module doc)."""
+    tiles. Returns (S, 8, PX) tile images (channels: see module doc). The
+    backward is K3 with `rmw_window` (runs of `group` tiles), else K2."""
     return CompositeSorted.apply(attrs_sorted, seg_start.to(torch.int32)
                                  .contiguous(),
                                  seg_cnt.to(torch.int32).contiguous(),
                                  tile_ids.to(torch.int32).contiguous(),
-                                 tile, tiles_x, bands, seg_cap)
+                                 tile, tiles_x, bands, seg_cap, group,
+                                 rmw_window)

@@ -1,15 +1,25 @@
-"""Differentiable tile-binned 3D Gaussian splat rasterizer, sorted backend
-(port of the `sorted` path of eags_slam_tpu.ops.rasterizer).
+"""Differentiable tile-binned 3D Gaussian splat rasterizer (port of
+eags_slam_tpu.ops.rasterizer): the `sorted` backend and the entry-binned
+`pallas` backend.
 
-Pipeline:
+Pipeline of the sorted backend:
   1. EWA projection (`project_gaussians`): 3D covariance R S S^T R^T to a 2D
      conic through the perspective Jacobian, 0.3 px low-pass, near plane,
      opacity-aware footprint radius capped to the +-r_n tile neighbourhood.
   2. Centre-tile sort (`_center_sort`): gaussians sorted by (centre tile,
      depth bits); each tile's `bands` neighbouring tile-row segments come
      from searchsorted, clipped to `seg_cap` lanes from the 128-aligned start.
-  3. Compositing: `ops.composite_sorted` (the K1/K2 CUDA kernels on the
-     card, their plain twins on the CPU).
+  3. Compositing: `ops.composite_sorted` (the K1 and K2 CUDA kernels on the
+     card, K3 for the backward with `rmw_window`, their plain twins on the
+     CPU).
+
+The `pallas` backend (named after the JAX package's v1 Pallas kernel; here
+K5 / K6) bins per entry instead: each gaussian goes to each of the up to
+dup_side^2 tiles its radius box covers (`_bin_entries`), the entries are
+sorted by (tile, depth), cut to the entry budget and laid out in 128-aligned
+per-tile segments (`_build_slots`), gathered attr-major (`_gather_entries`)
+and composited by `ops.composite_entries`. Its tracking path freezes the
+binning at the init pose (`freeze_binning`, `render_frozen`).
 
 The frozen-sorted tracking render also has a pose-contraction backward
 (`render_frozen_sorted(_tiles)_pose`): the gradient w.r.t. the 7 relative
@@ -21,49 +31,84 @@ Gradients reach every array input (means, quats, scales, opacity, colours
 and the pose) through PyTorch autograd; the column gather of `_sorted_attrs`
 is plain indexing, whose backward is a scatter-add.
 
-Only the sorted backend is ported. `RasterConfig` keeps the JAX fields the
-sorted path reads, plus the selectors of the unported branches, for which
-`check_config` raises. The dense/pallas-only fields (`tile_capacity`,
-`chunk`, `max_per_tile`, `entry_cap_factor`), the TPU grid `group` and
-`alpha_max` (the kernels clip alpha at the fixed `ALPHA_MAX`, as K1/K2 do)
-are left out.
+`RasterConfig` keeps the JAX fields the ported paths read, plus the
+selectors of the unported branches, for which `check_config` raises. The
+dense-only fields (`tile_capacity`, `chunk`: the v1 kernels use 128) and
+`alpha_max` (the kernels clip alpha at the fixed `ALPHA_MAX`) are left out.
+`group` is the run length of K3's blocks.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..core.camera import Camera
+from .composite_entries import composite_entries
 from .composite_sorted import (NCH, P_MAX, PJ, composite_sorted,
                                composite_sorted_fwd, pose_grad_sorted)
 
 
 class RasterConfig(NamedTuple):
     tile: int = 16            # square tile side in pixels
-    dup_side: int = 4         # frozen-reprojection radius cap (v1 semantics)
+    dup_side: int = 4         # pallas: a gaussian covers <= dup_side^2 tiles
     near: float = 0.2         # z culling plane
     alpha_min: float = 1.0 / 255.0
     sigma_clip: float = 3.0   # radius = sigma_clip * sqrt(lambda_max)
     low_pass: float = 0.3     # 2D covariance dilation (3DGS convention)
-    backend: str = "sorted"   # sorted (auto == sorted); jnp/pallas not ported
+    backend: str = "sorted"   # sorted | pallas (auto == sorted); jnp raises
+    max_per_tile: int = 8192  # pallas: entries composited per tile at most
+    group: int = 16           # sorted with rmw_window: tiles per K3 block
+    entry_cap_factor: int = 4  # pallas: total entry budget = factor * N
     seg_cap: int = 1024       # per-band segment capacity
     bands: int = 3            # centre-tile neighbourhood side
     kernel_bf16: bool = False  # not ported (ROADMAP Queue 2)
     kernel_quadform: bool = False  # not ported (ROADMAP Queue 2)
-    rmw_window: bool = False  # K3, not ported (ROADMAP Queue 2)
+    rmw_window: bool = False  # sorted backward through K3
+
+
+def apply_rcfg_env(cfg: RasterConfig) -> RasterConfig:
+    """Return cfg with the `EAGS_RCFG` comma-separated overrides applied
+    (e.g. EAGS_RCFG="backend=pallas,max_per_tile=4096"). Keys are
+    RasterConfig fields, values parse by the field's current type, and an
+    unknown key raises."""
+    spec = os.environ.get("EAGS_RCFG", "").strip()
+    if not spec:
+        return cfg
+    kv = {}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k not in cfg._fields:
+            raise KeyError(f"EAGS_RCFG: unknown RasterConfig field {k!r}")
+        cur = getattr(cfg, k)
+        if isinstance(cur, bool):
+            kv[k] = v.strip().lower() in ("1", "true", "yes")
+        elif isinstance(cur, int):
+            kv[k] = int(v)
+        elif isinstance(cur, float):
+            kv[k] = float(v)
+        else:
+            kv[k] = v.strip()
+    print(f"EAGS_RCFG overrides: {kv}")
+    return cfg._replace(**kv)
+
+
+def backend_of(cfg: RasterConfig) -> str:
+    """The backend a config runs: `auto` is the sorted backend."""
+    return "sorted" if cfg.backend == "auto" else cfg.backend
 
 
 def check_config(cfg: RasterConfig) -> None:
     """Raise for the configuration branches this port does not have yet."""
-    if cfg.backend not in ("sorted", "auto"):
+    if backend_of(cfg) not in ("sorted", "pallas"):
         raise NotImplementedError(
-            f"RasterConfig.backend={cfg.backend!r}: only the sorted backend "
-            "is ported (ROADMAP Queue 2: K5/K6 for 'pallas'; the dense 'jnp' "
-            "compositor is not on the port's path)")
+            f"RasterConfig.backend={cfg.backend!r}: the dense 'jnp' "
+            "compositor is not ported (ROADMAP Queue 1; not on the port's "
+            "path)")
     for flag, item in (("kernel_bf16", "K1 bf16 option"),
-                       ("kernel_quadform", "K1 quadform option"),
-                       ("rmw_window", "K3 windowed backward")):
+                       ("kernel_quadform", "K1 quadform option")):
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"RasterConfig.{flag}: not ported (ROADMAP Queue 2, {item})")
@@ -273,7 +318,8 @@ def _all_tiles(cam: Camera, cfg: RasterConfig, device):
 def _composite(attrs, seg_start, seg_cnt, tile_ids, cam, cfg):
     tiles_x, _ = _tiles(cam, cfg)
     return composite_sorted(attrs, seg_start, seg_cnt, tile_ids, cfg.tile,
-                            tiles_x, cfg.bands, cfg.seg_cap)
+                            tiles_x, cfg.bands, cfg.seg_cap, cfg.group,
+                            cfg.rmw_window)
 
 
 def render(means3d, quats, log_scales, opacity_logits, colors, w2c,
@@ -282,11 +328,17 @@ def render(means3d, quats, log_scales, opacity_logits, colors, w2c,
     """Render gaussians into (color, depth, alpha, radii); differentiable
     w.r.t. every array input including `w2c`."""
     check_config(cfg)
-    proj = project_gaussians(means3d, quats, log_scales, opacity_logits, w2c,
-                             cam, cfg, alive, radius_cap=_v2_radius_cap(cfg))
-    attrs, seg_start, seg_cnt = _sorted_attrs(proj, colors, cam, cfg)
-    out = _composite(attrs, seg_start, seg_cnt,
-                     _all_tiles(cam, cfg, attrs.device), cam, cfg)
+    if backend_of(cfg) == "pallas":
+        proj = project_gaussians(means3d, quats, log_scales, opacity_logits,
+                                 w2c, cam, cfg, alive)
+        out = _composite_pallas(proj, colors, cam, cfg)
+    else:
+        proj = project_gaussians(means3d, quats, log_scales, opacity_logits,
+                                 w2c, cam, cfg, alive,
+                                 radius_cap=_v2_radius_cap(cfg))
+        attrs, seg_start, seg_cnt = _sorted_attrs(proj, colors, cam, cfg)
+        out = _composite(attrs, seg_start, seg_cnt,
+                         _all_tiles(cam, cfg, attrs.device), cam, cfg)
     return _full_image(out, cam, cfg,
                        torch.ceil(proj.radius.detach()).to(torch.int32))
 
@@ -353,11 +405,19 @@ def freeze_sorted(means3d, quats, log_scales, opacity_logits, colors,
                   init_w2c, cam: Camera, cfg: RasterConfig,
                   alive=None) -> FrozenSorted:
     """Centre-sort once at the init pose; gather 3D attrs into that order."""
-    n = means3d.shape[0]
     proj = project_gaussians(means3d, quats, log_scales, opacity_logits,
                              init_w2c, cam, cfg, alive,
                              radius_cap=_v2_radius_cap(cfg))
     order, seg_start, seg_cnt = _center_sort(proj, cam, cfg)
+    attrs = _rows3d(means3d, quats, log_scales, colors, proj)
+    return FrozenSorted(_pad_sorted(attrs[:, order], cfg).contiguous(),
+                        seg_start, seg_cnt)
+
+
+def _rows3d(means3d, quats, log_scales, colors, proj: _Projected):
+    """(NCH, N) frozen 3D rows: xyz, packed world covariance, opacity (0
+    where culled at the init pose), rgb."""
+    n = means3d.shape[0]
     S = torch.exp(log_scales)
     M = _quat_to_rotmat(quats) * S[..., None, :]
     c00 = torch.sum(M[:, 0] * M[:, 0], -1)
@@ -367,14 +427,12 @@ def freeze_sorted(means3d, quats, log_scales, opacity_logits, colors,
     c12 = torch.sum(M[:, 1] * M[:, 2], -1)
     c22 = torch.sum(M[:, 2] * M[:, 2], -1)
     opac = proj.opacity * (proj.radius > 0)
-    attrs = torch.cat([
+    return torch.cat([
         torch.stack([means3d[:, 0], means3d[:, 1], means3d[:, 2],
                      c00, c01, c02, c11, c12, c22, opac,
                      colors[:, 0], colors[:, 1], colors[:, 2]], 0),
         torch.zeros((NCH - 13, n), dtype=torch.float32, device=means3d.device),
     ], 0)
-    return FrozenSorted(_pad_sorted(attrs[:, order], cfg).contiguous(),
-                        seg_start, seg_cnt)
 
 
 def _reproject_rows(e3d, w2c, cam: Camera, cfg: RasterConfig,
@@ -472,6 +530,162 @@ def render_tiles(means3d, quats, log_scales, opacity_logits, colors, w2c,
     attrs, seg_start, seg_cnt = _sorted_attrs(proj, colors, cam, cfg)
     out = _composite(attrs, seg_start, seg_cnt, tile_ids, cam, cfg)
     return _tile_render(out, tile_ids.shape[0], cfg.tile)
+
+
+# ---------------------------------------------------------------------------
+# Entry-binned backend (`pallas`: K5 / K6)
+# ---------------------------------------------------------------------------
+
+CHUNK_V1 = 128  # the v1 kernels' chunk and segment alignment
+
+
+def _bin_entries(proj: _Projected, cam: Camera, cfg: RasterConfig,
+                 margin: float = 0.0):
+    """Duplicate gaussians into the tiles their radius box covers (at most
+    dup_side^2, clipped to the image) and sort the entries by (tile, depth
+    bits, entry id). Returns (s_tile, s_gauss, start, count): sorted entry
+    tiles and gaussians, N * dup_side^2 long (invalid entries carry tile T
+    and sort last), and each tile's segment start / length."""
+    tiles_x, tiles_y = _tiles(cam, cfg)
+    num_tiles = tiles_x * tiles_y
+    d = cfg.dup_side
+    dev = proj.mean2d.device
+    with torch.no_grad():
+        u, v = proj.mean2d[:, 0], proj.mean2d[:, 1]
+        r = torch.where(proj.radius > 0, proj.radius + margin,
+                        torch.zeros_like(proj.radius))
+
+        def cell(x, hi):
+            return torch.clamp(torch.floor(x / cfg.tile), 0, hi - 1).long()
+
+        tx0, ty0 = cell(u - r, tiles_x), cell(v - r, tiles_y)
+        tx1, ty1 = cell(u + r, tiles_x), cell(v + r, tiles_y)
+        k = torch.arange(d * d, device=dev)
+        dx, dy = (k % d)[None, :], (k // d)[None, :]
+        valid = ((proj.radius[:, None] > 0) & (dx < (tx1 - tx0 + 1)[:, None])
+                 & (dy < (ty1 - ty0 + 1)[:, None]))
+        tile_id = (ty0[:, None] + dy) * tiles_x + (tx0[:, None] + dx)
+        tile_id = torch.where(valid, tile_id, torch.full_like(tile_id,
+                                                             num_tiles))
+        dbits = torch.clamp(proj.depth, min=1e-6).view(torch.int32).long()
+        dkey = torch.where(valid, dbits[:, None],
+                           torch.full_like(tile_id, 2**31 - 1))
+        # One int64 key (tile, depth bits); the stable sort breaks ties by
+        # the entry id gaussian * d^2 + k.
+        s_key, s_flat = torch.sort((tile_id * (1 << 32) + dkey).reshape(-1),
+                                   stable=True)
+        s_tile = s_key >> 32
+        t = torch.arange(num_tiles + 1, device=dev)
+        bounds = torch.searchsorted(s_tile, t)
+    return s_tile, s_flat // (d * d), bounds[:-1], bounds[1:] - bounds[:-1]
+
+
+def _build_slots(proj: _Projected, cam: Camera, cfg: RasterConfig,
+                 margin: float = 0.0):
+    """Binning -> 128-aligned per-tile slot layout. The sorted entries are
+    cut to the budget entry_cap_factor * N (rounded up to 128), so the last
+    tiles lose entries first; each tile keeps at most max_per_tile. Returns
+    (slot_gid (Epad,) i64, the gaussian of each slot, N for an empty one;
+    pstart (T,) i32; count (T,) i32), Epad = budget + 128 * T."""
+    n = proj.mean2d.shape[0]
+    tiles_x, tiles_y = _tiles(cam, cfg)
+    num_tiles = tiles_x * tiles_y
+    s_tile, s_gauss, start, count = _bin_entries(proj, cam, cfg, margin)
+    with torch.no_grad():
+        e_cap = min(s_gauss.shape[0],
+                    -(-cfg.entry_cap_factor * n // CHUNK_V1) * CHUNK_V1)
+        start = torch.clamp(start, max=e_cap)
+        count = torch.clamp(torch.clamp(start + count, max=e_cap) - start,
+                            max=cfg.max_per_tile)
+        padded = -(-count // CHUNK_V1) * CHUNK_V1
+        pstart = torch.cumsum(padded, 0) - padded
+        e_pad = e_cap + CHUNK_V1 * num_tiles
+        s_tile, s_gauss = s_tile[:e_cap], s_gauss[:e_cap]
+        tile_c = torch.clamp(s_tile, 0, num_tiles - 1)
+        pos = torch.arange(e_cap, device=s_tile.device) - start[tile_c]
+        ok = (s_tile < num_tiles) & (pos >= 0) & (pos < count[tile_c])
+        slot_gid = torch.full((e_pad,), n, dtype=torch.long,
+                              device=s_tile.device)
+        slot_gid[(pstart[tile_c] + pos)[ok]] = s_gauss[ok]
+    return slot_gid, pstart.to(torch.int32), count.to(torch.int32)
+
+
+class _GatherEntries(torch.autograd.Function):
+    """entries (NCH, Epad) = attrs[:, slot_gid]; the backward adds the
+    entry grads back into (NCH, N + 1) columns with index_add_."""
+
+    @staticmethod
+    def forward(ctx, attrs, slot_gid):
+        ctx.save_for_backward(slot_gid)
+        ctx.n_cols = attrs.shape[1]
+        return attrs[:, slot_gid]
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot_gid,) = ctx.saved_tensors
+        d = g.new_zeros((g.shape[0], ctx.n_cols))
+        d.index_add_(1, slot_gid, g)
+        return d, None
+
+
+def _gather_entries(attrs, slot_gid):
+    return _GatherEntries.apply(attrs, slot_gid)
+
+
+def _with_sentinel(attrs):
+    """Append the inert column N that empty slots gather."""
+    return torch.cat([attrs, attrs.new_zeros((attrs.shape[0], 1))], 1)
+
+
+def _composite_pallas(proj: _Projected, colors, cam: Camera,
+                      cfg: RasterConfig):
+    """Entry-binned compositing: slot layout, one attr-major gather, K5."""
+    tiles_x, _ = _tiles(cam, cfg)
+    slot_gid, pstart, count = _build_slots(proj, cam, cfg)
+    entries = _gather_entries(_with_sentinel(_stack_attrs(proj, colors)),
+                              slot_gid)
+    return composite_entries(entries, pstart, count, cfg.tile, tiles_x)
+
+
+class FrozenBinning(NamedTuple):
+    """Per-entry 3D attrs and the slot layout, binned once at the init pose
+    (with a margin) for the pose refinement of the `pallas` backend.
+    e3d rows as FrozenSorted's, one column per slot (the sentinel's for an
+    empty slot). Constant (no gradient)."""
+
+    e3d: torch.Tensor     # (NCH, Epad)
+    pstart: torch.Tensor  # (T,)
+    count: torch.Tensor   # (T,)
+
+
+@torch.no_grad()
+def freeze_binning(means3d, quats, log_scales, opacity_logits, colors,
+                   init_w2c, cam: Camera, cfg: RasterConfig, alive=None,
+                   margin: Optional[float] = None) -> FrozenBinning:
+    """Bin once at the init pose (margin tile / 2) and gather per-entry 3D
+    attrs; culled gaussians get opacity 0."""
+    if margin is None:
+        margin = cfg.tile / 2.0
+    proj = project_gaussians(means3d, quats, log_scales, opacity_logits,
+                             init_w2c, cam, cfg, alive)
+    slot_gid, pstart, count = _build_slots(proj, cam, cfg, margin)
+    attrs = _with_sentinel(_rows3d(means3d, quats, log_scales, colors, proj))
+    return FrozenBinning(attrs[:, slot_gid].contiguous(), pstart, count)
+
+
+def render_frozen(fb: FrozenBinning, w2c, cam: Camera,
+                  cfg: RasterConfig) -> RenderOutput:
+    """Render from a frozen binning; differentiable w.r.t. `w2c` (the entry
+    grads of K6 chain elementwise back to the pose)."""
+    check_config(cfg)
+    rows = _reproject_rows(fb.e3d, w2c, cam, cfg)
+    zeros = torch.zeros((NCH - 10, fb.e3d.shape[1]), dtype=torch.float32,
+                        device=fb.e3d.device)
+    entries = torch.cat([torch.stack(rows[:10], 0), zeros], 0)
+    tiles_x, _ = _tiles(cam, cfg)
+    out = composite_entries(entries, fb.pstart, fb.count, cfg.tile, tiles_x)
+    return _full_image(out, cam, cfg,
+                       torch.zeros(1, dtype=torch.int32, device=out.device))
 
 
 def tile_sums(x: torch.Tensor, ts: int, tiles_x: int, tiles_y: int):

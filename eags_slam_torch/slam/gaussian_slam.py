@@ -17,10 +17,18 @@ the SLAM chain, slam(f-1) @ inv(vo(f-1)) @ vo(f), from frame 3 on; coupled
 mode injects each tracked pose into the VO (`set_pose`). Frames wider than
 800 px run the VO at half resolution unless `vo.downscale_levels` is set.
 
+The rasterizer runs the sorted backend unless `EAGS_RCFG` (comma-separated
+RasterConfig overrides, e.g. `backend=pallas`) says otherwise; the
+`pallas` backend tracks on a frozen entry binning and maps with the plain
+(non-resident) loop. `mapping.rmw_window` or `EAGS_RMW_WINDOW=1` routes the
+sorted backward through K3.
+
 Not ported yet, each raising NotImplementedError when a config selects it:
 loop closure (`lc.enabled`), the device mesh (`use_mesh`, `force_mesh`,
-`sp_track`), the half-resolution submap init (`init_halfres_frac > 0`) and
-a VO pinned to another device (`vo.device`).
+`sp_track`), the half-resolution submap init (`init_halfres_frac > 0`), the
+mapper's per-iteration tile subset (`tile_subset > 0`), the dense `jnp`
+backend, the K1 `kernel_bf16` / `kernel_quadform` options and a VO pinned
+to another device (`vo.device`).
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from ..config import save_config
 from ..core import gaussians as G
 from ..core.camera import Camera
 from ..datasets import get_dataset
-from ..ops.rasterizer import RasterConfig, check_config
+from ..ops.rasterizer import RasterConfig, apply_rcfg_env, check_config
 from ..vo.system import EdgeVO, VOConfig
 from . import mapper as M
 from .logger import Logger
@@ -104,17 +112,18 @@ class GaussianSLAM:
         self.trans_thre = float(mc.get("new_submap_trans_thre", 0.5))
         self.capacity = int(mc.get("max_gaussians", 1 << 18))
         on_gpu = self.device.type == "cuda"
-        # `tile_capacity`, `raster_group` and `entry_cap_factor` configure
-        # the dense / pallas backends and the TPU grid, none of which the
-        # sorted path reads (in the JAX package either); they are not read.
-        self.rcfg = RasterConfig(
+        # `tile_capacity` configures the dense backend, which is not ported.
+        self.rcfg = apply_rcfg_env(RasterConfig(
             tile=int(mc.get("raster_tile", 32 if on_gpu else 16)),
             dup_side=int(mc.get("dup_side", 3 if on_gpu else 4)),
+            group=int(mc.get("raster_group", 8)),
+            entry_cap_factor=int(mc.get("entry_cap_factor", 4)),
             seg_cap=int(mc.get("seg_cap", 1024)),
             kernel_bf16=bool(mc.get("kernel_bf16", False)),
             kernel_quadform=bool(mc.get("kernel_quadform", False)),
-            rmw_window=bool(mc.get("rmw_window", False)),
-        )
+            rmw_window=bool(int(os.environ.get(
+                "EAGS_RMW_WINDOW", int(bool(mc.get("rmw_window", False)))))),
+        ))
         check_config(self.rcfg)
         self.mcfg = M.MapperConfig(
             iterations=int(mc["iterations"]),

@@ -11,8 +11,11 @@ Differences in form from the JAX version, none in the arithmetic:
     called once per block). The same injected draws make the two packages
     take the same path.
 
-Only the resident-sorted optimisation (`kf_block > 0`, no per-iteration
-tile subset) is ported; it is the path every config on the main path takes.
+Both optimisation loops are ported: the resident-sorted one (sorted
+backend, `kf_block > 0`) and the plain one that renders every iteration
+from the canonical row order with a keyframe drawn per iteration (the
+`pallas` backend, or `kf_block <= 0`). The per-iteration random tile
+subset (`tile_subset > 0`) is not.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ..core.sh import sh_to_rgb
 from ..ops import knn
 from ..ops.image import canny, dilate, gradient_sample_probs, rgb_to_gray
 from ..ops.losses import isotropic_loss, masked_l1, ssim, ssim_batched
-from ..ops.rasterizer import (RasterConfig, gt_tiles, render,
+from ..ops.rasterizer import (RasterConfig, backend_of, gt_tiles, render,
                               render_sorted_resident,
                               render_sorted_resident_tiles, sorted_layout,
                               tile_sums)
@@ -68,10 +71,10 @@ class MapperConfig(NamedTuple):
 
 
 def check_config(mcfg: MapperConfig) -> None:
-    if mcfg.kf_block <= 0 or mcfg.tile_subset > 0:
+    if mcfg.tile_subset > 0:
         raise NotImplementedError(
-            "MapperConfig kf_block <= 0 / tile_subset > 0: only the "
-            "resident-sorted optimisation is ported (ROADMAP Queue 1 item 6)")
+            "MapperConfig.tile_subset > 0: the per-iteration random tile "
+            "subset is not ported (ROADMAP Queue 1)")
     if mcfg.init_halfres_frac > 0:
         raise NotImplementedError(
             "MapperConfig.init_halfres_frac > 0: the half-resolution submap "
@@ -371,6 +374,54 @@ def _masked_grads(opt: Dict[str, torch.Tensor], total, alive):
             for k, g in zip(OPT_KEYS, gs)}
 
 
+def _map_loss(out, kfs: KeyframeBatch, kidx: int, log_scales, alive,
+              lam: float):
+    """(1 - lam) masked L1 + lam (1 - SSIM) + masked depth L1 + isotropic
+    regulariser of a full-image render of keyframe `kidx`. Returns (total,
+    colour loss, depth loss, exposure-corrected image, mask)."""
+    gt_color, gt_depth = kfs.color[kidx], kfs.depth[kidx]
+    exp_a, exp_b = kfs.exposure[kidx, 0], kfs.exposure[kidx, 1]
+    image = torch.clamp(out.color * torch.exp(exp_a) + exp_b, 0.0, 1.0)
+    mask = ((gt_depth > 0) & ~torch.isnan(out.depth)).to(image.dtype)
+    color_loss = (1.0 - lam) * masked_l1(image, gt_color, mask) \
+        + lam * (1.0 - ssim(image, gt_color))
+    depth_loss = masked_l1(out.depth, gt_depth, mask)
+    total = color_loss + depth_loss + isotropic_loss(log_scales, alive)
+    return total, color_loss, depth_loss, image, mask
+
+
+def _optimize_plain(state: GaussianState, kfs: KeyframeBatch, iterations,
+                    cam, rcfg, mcfg, p_kf, lr_tree, book_step, book0,
+                    draw_kf):
+    """The non-resident optimisation: every iteration draws a keyframe
+    (`draw_kf(p_kf, it)`, 0 while it < 5), renders the rows in their
+    canonical order, masks the grads by `alive` and takes an Adam step and
+    the bookkeeping step."""
+    opt = {k: getattr(state.params, k) for k in OPT_KEYS}
+    adam, alive, book = state.adam, state.alive, book0
+    colors = sh_to_rgb(state.params.f_dc)
+    losses = np.zeros((iterations, 3), np.float32)
+    it = 0
+    while it < iterations and not book.stopped:
+        kidx = int(draw_kf(p_kf, it))
+        leaf = {k: v.detach().requires_grad_(True) for k, v in opt.items()}
+        out = render(leaf["xyz"], leaf["quats"], leaf["log_scales"],
+                     leaf["opacity_logits"], colors, kfs.w2c[kidx], cam,
+                     rcfg, alive=alive)
+        total, cl, dl, _, _ = _map_loss(out, kfs, kidx, leaf["log_scales"],
+                                        alive, mcfg.lambda_dssim)
+        grads = _masked_grads(leaf, total, alive)
+        vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
+        vals = vals.cpu().numpy().astype(np.float32)
+        new_opt, new_adam = optim.adam_update(
+            adam, {k: v.detach() for k, v in leaf.items()}, grads, lr_tree)
+        book, opt, adam, alive = book_step(book, it, vals[0], new_opt,
+                                           new_adam, alive)
+        losses[it] = vals
+        it += 1
+    return opt, adam, alive, book, it, losses
+
+
 def _optimize_resident(state: GaussianState, kfs: KeyframeBatch, iterations,
                        cam, rcfg, mcfg, p_kf, lr_tree, book_step, book0,
                        draw_kf):
@@ -394,18 +445,12 @@ def _optimize_resident(state: GaussianState, kfs: KeyframeBatch, iterations,
 
     def loss_full(opt, f_dc, alive, kidx, seg_start, seg_cnt):
         gt_color, gt_depth = kfs.color[kidx], kfs.depth[kidx]
-        exp_a, exp_b = kfs.exposure[kidx, 0], kfs.exposure[kidx, 1]
         out = render_sorted_resident(
             opt["xyz"], opt["quats"], opt["log_scales"],
             opt["opacity_logits"], sh_to_rgb(f_dc), kfs.w2c[kidx],
             seg_start, seg_cnt, cam, rcfg, alive=alive)
-        image = torch.clamp(out.color * torch.exp(exp_a) + exp_b, 0.0, 1.0)
-        mask = ((gt_depth > 0) & ~torch.isnan(out.depth)).to(image.dtype)
-        color_loss = (1.0 - lam) * masked_l1(image, gt_color, mask) \
-            + lam * (1.0 - ssim(image, gt_color))
-        depth_loss = masked_l1(out.depth, gt_depth, mask)
-        total = color_loss + depth_loss + isotropic_loss(opt["log_scales"],
-                                                         alive)
+        total, color_loss, depth_loss, image, mask = _map_loss(
+            out, kfs, kidx, opt["log_scales"], alive, lam)
         with torch.no_grad():
             err = (torch.abs(image - gt_color).mean(-1)
                    + torch.abs(torch.nan_to_num(out.depth) - gt_depth)) * mask
@@ -508,8 +553,8 @@ def _optimize_resident(state: GaussianState, kfs: KeyframeBatch, iterations,
 
 
 def _default_kf_sampler(generator, device):
-    """Keyframe 0 for blocks starting below iteration 5, else a draw from
-    `p_kf`."""
+    """Keyframe 0 for blocks (or, in the plain loop, iterations) starting
+    below iteration 5, else a draw from `p_kf`."""
     def draw(p_kf, it0):
         if it0 < 5:
             return 0
@@ -525,8 +570,9 @@ def _optimize_core(state: GaussianState, kfs: KeyframeBatch, n_kf: int,
     masked L1 + l (1 - SSIM) + masked depth L1 + isotropic regulariser;
     checkpoint every 5%, prune (+ rollback) at 30% / 60%, early stop after
     the last prune, final rollback and opacity < 0.01 prune.
-    `kf_sampler(p_kf, it0) -> keyframe index` is called once per block; it
-    replaces the generator's draws (and must return 0 while it0 < 5)."""
+    `kf_sampler(p_kf, it0) -> keyframe index` is called once per block of
+    the resident loop, once per iteration of the plain one; it replaces the
+    generator's draws (and must return 0 while it0 < 5)."""
     check_config(mcfg)
     frozen = state.params
     ckpt_every = max(int(0.05 * iterations), 1)
@@ -550,7 +596,10 @@ def _optimize_core(state: GaussianState, kfs: KeyframeBatch, n_kf: int,
     opt0 = {k: getattr(state.params, k) for k in OPT_KEYS}
     book0 = _BookState(np.float32(np.inf), np.float32(np.inf), opt0,
                        state.adam, False, 0, 0, False)
-    opt, adam, alive, book, final_it, losses = _optimize_resident(
+    loop = (_optimize_resident
+            if backend_of(rcfg) == "sorted" and mcfg.kf_block > 0
+            else _optimize_plain)
+    opt, adam, alive, book, final_it, losses = loop(
         state, kfs, iterations, cam, rcfg, mcfg, p_kf, lr_tree, book_step,
         book0, draw_kf)
     last = losses[max(final_it - 1, 0)]

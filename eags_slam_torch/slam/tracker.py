@@ -4,11 +4,13 @@ Per frame: score the candidate init poses on full-image renders, double the
 iteration budget when the best candidate's loss is far above the running
 medians, then refine w2c = last_w2c @ Rel(quat, trans) with amsgrad Adam,
 ReduceLROnPlateau, the |delta loss| early stop, the optional stale-best stop
-and best-iterate recovery. The refinement renders a frozen centre-sorted
-layout (`freeze_sorted`), optionally on the top-scoring tile subset with a
-wider polish phase at the end. With `pose_grad_kernel` the refinement's
-pose gradient comes from the pose-contraction backward (K4) instead of the
-K2 grads and autograd through the reprojection. The JAX `lax.while_loop` is
+and best-iterate recovery. On the sorted backend the refinement renders a
+frozen centre-sorted layout (`freeze_sorted`), optionally on the
+top-scoring tile subset with a wider polish phase at the end; with
+`pose_grad_kernel` its pose gradient comes from the pose-contraction
+backward (K4) instead of the K2 grads and autograd through the
+reprojection. On the `pallas` backend it renders a frozen entry binning
+(`freeze_binning`, K5 / K6) on the full image. The JAX `lax.while_loop` is
 a Python loop here; its carry is plain Python/numpy scalars plus the pose
 tensors.
 """
@@ -24,7 +26,8 @@ from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
 from ..core.se3 import quat_to_rotmat, rotmat_to_quat
 from ..core.sh import sh_to_rgb
-from ..ops.rasterizer import (RasterConfig, freeze_sorted, gt_tiles, render,
+from ..ops.rasterizer import (RasterConfig, backend_of, freeze_binning,
+                              freeze_sorted, gt_tiles, render, render_frozen,
                               render_frozen_sorted, render_frozen_sorted_pose,
                               render_frozen_sorted_tiles,
                               render_frozen_sorted_tiles_pose, tile_sums)
@@ -130,8 +133,9 @@ def _losses_from_output(out, pose: Dict[str, torch.Tensor], gt_color,
 def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
                   gt_color, gt_depth, cam: Camera, rcfg: RasterConfig,
                   tcfg: TrackerConfig, subset=None):
-    """Refinement loss over the frozen-sorted layout (tile subset when
-    `subset` = (tile_ids, gt_c_tiles, gt_d_tiles, in_img) is given)."""
+    """Refinement loss over the frozen layout of the backend: the
+    centre-sorted one (tile subset when `subset` = (tile_ids, gt_c_tiles,
+    gt_d_tiles, in_img) is given) or the entry binning."""
     check_config(tcfg)
     w = tcfg.w_color_loss
     if not tcfg.frozen_binning:
@@ -143,6 +147,18 @@ def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
             cl, dl = _losses_from_output(out, pose, gt_color, gt_depth, tcfg)
             return w * cl + (1 - w) * dl, (cl, dl)
         return loss_full
+    if backend_of(rcfg) == "pallas":
+        fb = freeze_binning(params.xyz, params.quats, params.log_scales,
+                            params.opacity_logits, colors,
+                            last_w2c @ init_rel, cam, rcfg, alive=alive)
+
+        def loss_frozen(pose):
+            out = render_frozen(
+                fb, last_w2c @ _rel_matrix(pose["quat"], pose["trans"]), cam,
+                rcfg)
+            cl, dl = _losses_from_output(out, pose, gt_color, gt_depth, tcfg)
+            return w * cl + (1 - w) * dl, (cl, dl)
+        return loss_frozen
     fs = freeze_sorted(params.xyz, params.quats, params.log_scales,
                        params.opacity_logits, colors, last_w2c @ init_rel,
                        cam, rcfg, alive=alive)
@@ -283,8 +299,8 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
                 gt_depth, med_cl: float, med_dl: float, exposure0,
                 cam: Camera, rcfg: RasterConfig, tcfg: TrackerConfig):
     """Candidate scoring (full-image renders), iteration doubling, then the
-    refinement (tile subset + polish when configured). Returns (rel 4x4,
-    exposure (2,), stats np.float32 of TRACK_STAT_NAMES)."""
+    refinement (tile subset + polish when configured, sorted backend only).
+    Returns (rel 4x4, exposure (2,), stats np.float32 of TRACK_STAT_NAMES)."""
     check_config(tcfg)
     colors = sh_to_rgb(params.f_dc)
     w = tcfg.w_color_loss
@@ -315,7 +331,8 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
     num_tiles = tiles_x * tiles_y
     s = int(round(tcfg.tile_subset_frac * num_tiles))
     subset = None
-    if 0 < s < num_tiles and tcfg.frozen_binning:
+    if (0 < s < num_tiles and backend_of(rcfg) == "sorted"
+            and tcfg.frozen_binning):
         subset = _subset(gt_color, gt_depth, alphas[best], cam, ts, tiles_x,
                          tiles_y, s)
     loss_fn = _make_loss_fn(params, alive, colors, init_rel, last_w2c,

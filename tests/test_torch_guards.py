@@ -15,6 +15,7 @@ import torch
 
 from eags_slam_torch.config import load_config
 from eags_slam_torch.core.camera import Camera
+from eags_slam_torch.ops import composite_entries as ce
 from eags_slam_torch.ops import composite_sorted as cs
 from eags_slam_torch.ops import rasterizer as TR
 from eags_slam_torch.slam import tracker as TT
@@ -93,17 +94,54 @@ def test_kernel_wrappers_raise_without_cuda():
     jac = torch.empty((48, 384), **meta)
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cs.pose_grad_sorted(attrs, jac, ids, out, ss, out, 16, 3)
-    assert cs.counts() == {"fwd_launches": 0, "bwd_launches": 0,
-                           "pose_launches": 0, "fwd_twin_calls": 0,
-                           "bwd_twin_calls": 0, "pose_twin_calls": 0}
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        cs.composite_sorted_bwd_window(attrs, ss, ids, out, ss, out, 16, 3,
+                                       3, 128, 2)
+    ce.reset_counts()
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        ce.composite_entries_fwd(attrs, ids, ids, 16, 3)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        ce.composite_entries_bwd(attrs, ids, ids, out, out, 16, 3)
+    assert all(v == 0 for v in cs.counts().values())
+    assert all(v == 0 for v in ce.counts().values())
+    assert len(cs.counts()) == 8 and len(ce.counts()) == 4
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backend", "jnp"), ("backend", "pallas"), ("kernel_bf16", True),
-    ("kernel_quadform", True), ("rmw_window", True)])
+    ("backend", "jnp"), ("kernel_bf16", True), ("kernel_quadform", True)])
 def test_unported_raster_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.check_config(TR.RasterConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [("backend", "pallas"),
+                                         ("rmw_window", True)])
+def test_ported_raster_options_render(field, value):
+    """The entry-binned backend (K5 / K6) and the windowed backward (K3)
+    are ported: check_config accepts them, and a tiny render with its
+    backward runs through their twins on the CPU."""
+    cfg = TR.RasterConfig(**{field: value})
+    TR.check_config(cfg)
+    rng = np.random.default_rng(0)
+    n = 40
+    means = torch.as_tensor(np.stack(
+        [rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n),
+         rng.uniform(1.5, 2.5, n)], -1).astype(np.float32))
+    means.requires_grad_(True)
+    quats = torch.tensor([[1.0, 0.0, 0.0, 0.0]]).repeat(n, 1)
+    out = TR.render(means, quats, torch.full((n, 3), -3.0),
+                    torch.ones((n, 1)), torch.rand((n, 3)), torch.eye(4),
+                    Camera(50.0, 50.0, 15.5, 15.5, 32, 32), cfg)
+    cs.reset_counts()
+    ce.reset_counts()
+    out.color.sum().backward()
+    assert float(means.grad.abs().max()) > 0
+    if field == "backend":
+        assert ce.counts()["entries_bwd_twin_calls"] == 1
+        assert cs.counts()["bwd_twin_calls"] == 0
+    else:
+        assert cs.counts()["window_twin_calls"] == 1
+        assert cs.counts()["bwd_twin_calls"] == 0
 
 
 @pytest.mark.parametrize("field", ["pose_grad_kernel", "debug_per_iter"])
@@ -126,7 +164,8 @@ def test_unported_tracker_options_raise(field):
 # Sections whose first entry is now ported keep their case with an added
 # entry that still raises: the VO pinned to another device, and an edge
 # crop of the synthetic_hard frames (the readers that crop are not
-# ported). The ported branches run in test_ported_config_branches_run.
+# ported). Of the rasterizer's options only the K1 kernel options raise.
+# The ported branches run in test_ported_config_branches_run.
 @pytest.mark.parametrize("sections", [
     {"tracking": {"odometry_type": "odometer"}, "vo": {"device": "cpu"}},
     {"tracking": {"help_camera_initialization": True},
@@ -136,8 +175,9 @@ def test_unported_tracker_options_raise(field):
     {"force_mesh": True},
     {"tracking": {"sp_track": True}},
     {"mapping": {"init_halfres_frac": 0.5}},
-    {"mapping": {"rmw_window": True}},
     {"mapping": {"kernel_bf16": True}},
+    {"mapping": {"kernel_quadform": True}},
+    {"mapping": {"tile_subset": 4}},
     {"data": {"dataset_name": "synthetic_hard"}, "cam": {"crop_edge": 8}},
     {"data": {"dataset_name": "replica"}},
 ], ids=lambda s: next(iter(s)) + "." + str(next(iter(s.values()))))
@@ -154,12 +194,13 @@ _CHEAP = {"mapping": {"iterations": 4, "new_submap_iterations": 8},
 
 @pytest.mark.parametrize("case", [
     "odometer", "odometer_coupled", "help_camera_initialization",
-    "synthetic_hard", "pose_grad_kernel"])
-def test_ported_config_branches_run(tmp_path, case):
+    "synthetic_hard", "pose_grad_kernel", "rmw_window", "backend_pallas"])
+def test_ported_config_branches_run(tmp_path, monkeypatch, case):
     """The branches that used to raise now run: the edge VO (as the
     odometer, decoupled or coupled, or only scoring its candidate), the
-    synthetic_hard scene, and the pose-contraction backward (its twin on
-    the CPU)."""
+    synthetic_hard scene, the pose-contraction backward, the windowed
+    backward (`mapping.rmw_window`) and the entry-binned backend
+    (`EAGS_RCFG=backend=pallas`), each through its twins on the CPU."""
     sections = {
         "odometer": {"tracking": {"odometry_type": "odometer"}},
         "odometer_coupled": {"tracking": {"odometry_type": "odometer"},
@@ -169,7 +210,13 @@ def test_ported_config_branches_run(tmp_path, case):
         "synthetic_hard": {"data": {"dataset_name": "synthetic_hard",
                                     "n_frames": 4}},
         "pose_grad_kernel": {"tracking": {"pose_grad_kernel": True}},
+        "rmw_window": {"mapping": {"rmw_window": True}},
+        "backend_pallas": {},
     }[case]
+    monkeypatch.delenv("EAGS_RMW_WINDOW", raising=False)
+    monkeypatch.delenv("EAGS_RCFG", raising=False)
+    if case == "backend_pallas":
+        monkeypatch.setenv("EAGS_RCFG", "backend=pallas")
     cfg = _tiny(tmp_path, frames=4, **_CHEAP)
     for sec, d in sections.items():
         cfg[sec].update(d)
@@ -179,7 +226,9 @@ def test_ported_config_branches_run(tmp_path, case):
     gslam = GaussianSLAM(cfg)
     try:
         cs.reset_counts()
+        ce.reset_counts()
         report = gslam.run()
+        backend = gslam.rcfg.backend
     finally:
         gslam.cleanup()
         torch.set_num_threads(threads)
@@ -191,10 +240,17 @@ def test_ported_config_branches_run(tmp_path, case):
         assert (tmp_path / "out" / "vo_traj_tum.txt").exists()
     else:
         assert "vo" not in report
-    if case == "pose_grad_kernel":
-        assert cs.counts()["pose_twin_calls"] > 0
-    else:
-        assert cs.counts()["pose_twin_calls"] == 0
+    c = {**cs.counts(), **ce.counts()}
+    twin = {"pose_grad_kernel": "pose_twin_calls",
+            "rmw_window": "window_twin_calls",
+            "backend_pallas": "entries_bwd_twin_calls"}.get(case)
+    for key in ("pose_twin_calls", "window_twin_calls",
+                "entries_bwd_twin_calls"):
+        assert (c[key] > 0) == (key == twin), (key, c)
+    # On the entry-binned backend no render is sorted: no tile subset ran.
+    assert (backend == "pallas") == (case == "backend_pallas"), backend
+    if case == "backend_pallas":
+        assert c["fwd_twin_calls"] == c["bwd_twin_calls"] == 0
 
 
 @pytest.mark.parametrize("key", ["eval_mesh", "eval_global", "save_render"])

@@ -1,5 +1,7 @@
-"""The K1 / K2 / K4 CUDA kernels against their plain PyTorch twins, on the
-card; K4's whole path against the K2 + autograd chain.
+"""The CUDA kernels against their plain PyTorch twins, on the card: K1 /
+K2 / K4, K4's whole path against the K2 + autograd chain, K3 against K2's
+twin and K2 on the hazard scenes of the windowed backward, and K5 / K6 on
+the entry-binned layout (full frame and frozen binning).
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -11,12 +13,14 @@ Tolerances (those of chip_smoke.py): colour / alpha 1e-3 absolute, survivor
 counts and columns exact, grads 1e-3 of each row's largest |grad| (the
 kernel sums in another order and adds across tiles with atomics); K4's
 dpose and the K4 path against the K2 chain 1e-3 of the largest |dpose|.
+K6 uses no atomics: two runs are equal bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from eags_slam_torch.core.camera import Camera
+from eags_slam_torch.ops import composite_entries as ce
 from eags_slam_torch.ops import composite_sorted as cs
 from eags_slam_torch.ops import rasterizer as R
 from eags_slam_torch.ops.rasterizer import (RasterConfig, _sorted_attrs,
@@ -106,8 +110,9 @@ def test_autograd_function_launches_kernels(cuda_device):
     out[:, :5].sum().backward()
     torch.cuda.synchronize()
     assert cs.counts() == {"fwd_launches": 1, "bwd_launches": 1,
-                           "pose_launches": 0, "fwd_twin_calls": 0,
-                           "bwd_twin_calls": 0, "pose_twin_calls": 0}
+                           "window_launches": 0, "pose_launches": 0,
+                           "fwd_twin_calls": 0, "bwd_twin_calls": 0,
+                           "window_twin_calls": 0, "pose_twin_calls": 0}
     assert torch.isfinite(a.grad).all() and float(a.grad.abs().max()) > 0
 
 
@@ -163,9 +168,159 @@ def test_pose_kernel_matches_twin_and_k2_chain(tile, seg_cap, n,
             fs, qt, last_w2c, ids, CAM, cfg)), qt)
         torch.cuda.synchronize()
         assert cs.counts() == {"fwd_launches": 1, "bwd_launches": 0,
-                               "pose_launches": 1, "fwd_twin_calls": 0,
-                               "bwd_twin_calls": 0, "pose_twin_calls": 0}
+                               "window_launches": 0, "pose_launches": 1,
+                               "fwd_twin_calls": 0, "bwd_twin_calls": 0,
+                               "window_twin_calls": 0, "pose_twin_calls": 0}
         (d2,) = torch.autograd.grad(loss(R.render_frozen_sorted_tiles(
             fs, last_w2c @ _rel_matrix(qt[:4], qt[4:]), ids, CAM, cfg)), qt)
         scale = float(d2.abs().max())
         assert float((d4 - d2).abs().max()) <= 1e-3 * scale
+
+
+def _grads_close(gk, gt):
+    for r in range(10):
+        scale = float(gt[r].abs().max())
+        assert float((gk[r] - gt[r]).abs().max()) <= 1e-3 * scale + 1e-9, r
+    assert float(gk[10:].abs().max()) == 0.0
+
+
+# (tile, seg_cap, gaussians, group, tile ids): the hazard scenes of
+# tests/test_rasterizer_v2.py's test_window_rmw_*.
+WINDOW_CASES = {
+    "full_group2": (16, 256, 600, 2, "full"),
+    "full_group8_t32": (32, 1024, 1500, 8, "full"),
+    "overflow_seg128": (16, 128, 1500, 4, "full"),
+    "shuffled_repeated": (16, 128, 800, 3, "shuffled"),
+    "sparse": (16, 256, 6, 2, "full"),
+    "tile64_one_run": (64, 1024, 1500, 64, "full"),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_kernel_matches_k2(case, cuda_device):
+    """K3 against K2's twin (its plain version) and against K2, on K1's
+    residuals; the autograd route with rmw_window launches K1 and K3."""
+    tile, seg_cap, n, group, ids_kind = WINDOW_CASES[case]
+    attrs, ss, sc, tx, num_tiles = _inputs(tile, seg_cap, n, cuda_device)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    if ids_kind == "shuffled":
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        p = torch.randperm(num_tiles, generator=gen, device=cuda_device)
+        ids = torch.cat([p[:3], p[2:3], p[3:], p[:2]]).to(torch.int32)
+    ok, ck = cs.composite_sorted_fwd(attrs, ss, sc, ids, tile, tx, 3,
+                                     seg_cap)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    dout = torch.randn(ok.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    g3 = cs.composite_sorted_bwd_window(attrs, ss, ids, ok, ck, dout, tile,
+                                        tx, 3, seg_cap, group)
+    g2 = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, tile, tx)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ok, ck, dout, tile, tx)
+    torch.cuda.synchronize()
+    assert float(gt[:10].abs().max()) > 0
+    _grads_close(g3, gt)
+    _grads_close(g3, g2)
+    a = attrs.clone().requires_grad_(True)
+    cs.reset_counts()
+    out = cs.composite_sorted(a, ss, sc, ids, tile, tx, 3, seg_cap, group,
+                              rmw_window=True)
+    (out[:, :5] * dout[:, :5]).sum().backward()
+    torch.cuda.synchronize()
+    c = cs.counts()
+    assert (c["fwd_launches"], c["window_launches"], c["bwd_launches"]) == \
+        (1, 1, 0)
+    assert c["fwd_twin_calls"] == c["window_twin_calls"] == 0
+    _grads_close(a.grad, gt)
+
+
+def _entry_inputs(tile, n, max_per_tile, device, seed=0, w2c=None):
+    t = _scene(n, device, seed)
+    cfg = RasterConfig(tile=tile, dup_side=3, max_per_tile=max_per_tile,
+                       backend="pallas")
+    w2c = torch.eye(4, device=device) if w2c is None else w2c
+    proj = project_gaussians(t["means"], t["q"], t["ls"], t["op"], w2c, CAM,
+                             cfg)
+    slot, pstart, count = R._build_slots(proj, CAM, cfg)
+    entries = R._gather_entries(R._with_sentinel(R._stack_attrs(
+        proj, t["col"])), slot).contiguous()
+    return t, cfg, entries, pstart, count, -(-CAM.width // tile)
+
+
+def _check_entries(entries, pstart, count, tile, tx, device):
+    out_k = ce.composite_entries_fwd(entries, pstart, count, tile, tx)
+    out_t = ce.composite_entries_fwd_plain(entries, pstart, count, tile, tx)
+    torch.cuda.synchronize()
+    assert (out_k[:, :5] - out_t[:, :5]).abs().max() < 1e-3
+    assert torch.equal(out_k[:, 7], out_t[:, 7])
+    assert float((out_k[:, 6] != out_t[:, 6]).float().mean()) <= 5e-3
+    gen = torch.Generator(device=device).manual_seed(3)
+    dout = torch.randn(out_t.shape, generator=gen, device=device)
+    dout[:, 5:] = 0
+    gk = ce.composite_entries_bwd(entries, pstart, count, out_k, dout, tile,
+                                  tx)
+    gk2 = ce.composite_entries_bwd(entries, pstart, count, out_k, dout, tile,
+                                   tx)
+    gt = ce.composite_entries_bwd_plain(entries, pstart, count, out_k, dout,
+                                        tile, tx)
+    torch.cuda.synchronize()
+    assert float(gt[:10].abs().max()) > 0
+    _grads_close(gk, gt)
+    assert torch.equal(gk, gk2)                # no atomics: run to run equal
+    visited = torch.zeros(entries.shape[1], dtype=torch.bool, device=device)
+    eff = out_k[:, 6, 0].long()
+    for t in range(pstart.shape[0]):
+        p0 = int(pstart[t])
+        visited[p0: p0 + 128 * int(eff[t])] = True
+    assert float(gk[:, ~visited].abs().max()) == 0.0
+    return out_k
+
+
+@pytest.mark.parametrize("tile,n,max_per_tile", [(16, 600, 8192),
+                                                 (32, 1500, 8192),
+                                                 (64, 1500, 8192),
+                                                 (16, 1500, 256)])
+def test_entry_kernels_match_twins_on_card(tile, n, max_per_tile,
+                                           cuda_device):
+    """K5 / K6 against their twins on the entry layout of a full frame
+    (and with max_per_tile clipping tiles), K6 twice bit for bit, zeros in
+    the columns K5 did not composite; the autograd route launches K5 and
+    K6 once each and no twin."""
+    _, _, entries, pstart, count, tx = _entry_inputs(tile, n, max_per_tile,
+                                                     cuda_device)
+    _check_entries(entries, pstart, count, tile, tx, cuda_device)
+    e = entries.clone().requires_grad_(True)
+    ce.reset_counts()
+    out = ce.composite_entries(e, pstart, count, tile, tx)
+    out[:, :5].sum().backward()
+    torch.cuda.synchronize()
+    assert ce.counts() == {"entries_fwd_launches": 1,
+                           "entries_bwd_launches": 1,
+                           "entries_fwd_twin_calls": 0,
+                           "entries_bwd_twin_calls": 0}
+
+
+def test_entry_kernels_on_frozen_binning(cuda_device):
+    """K5 / K6 on the frozen-binning layout reprojected at a shifted
+    tracking pose, and the frozen render's pose gradient through K6 against
+    the twins' on the CPU (1e-3 of the largest |grad|)."""
+    t = _scene(1500, cuda_device, 2)
+    cfg = RasterConfig(tile=32, dup_side=3, backend="pallas")
+    fb = R.freeze_binning(t["means"], t["q"], t["ls"], t["op"], t["col"],
+                          torch.eye(4, device=cuda_device), CAM, cfg)
+    w2c = torch.eye(4, device=cuda_device)
+    w2c[:3, 3] = torch.tensor([0.01, -0.008, 0.02], device=cuda_device)
+    rows = R._reproject_rows(fb.e3d, w2c, CAM, cfg)
+    entries = torch.cat([torch.stack(rows[:10]), torch.zeros(
+        (6, fb.e3d.shape[1]), device=cuda_device)]).contiguous()
+    tx = -(-CAM.width // 32)
+    _check_entries(entries, fb.pstart, fb.count, 32, tx, cuda_device)
+
+    def pose_grad(dev):
+        fbd = R.FrozenBinning(*(x.to(dev) for x in fb))
+        w = w2c.to(dev).clone().requires_grad_(True)
+        o = R.render_frozen(fbd, w, CAM, cfg)
+        loss = (o.color ** 2).mean() + 0.1 * o.depth.mean() + o.alpha.mean()
+        return torch.autograd.grad(loss, w)[0].cpu()
+
+    gk, gt = pose_grad(cuda_device), pose_grad("cpu")
+    assert float((gk - gt).abs().max()) <= 1e-3 * float(gt.abs().max())
