@@ -11,15 +11,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. kernels  - at the main-path shape (1200x680, tile 32) on the synthetic
                 room (>= 100k gaussians): K1 and K2 against their plain
                 PyTorch twins (bands 3, seg_cap 1024), full frame and a
-                shuffled 1/8 tile subset; K3 against K2's twin and K2 on the
-                same residuals; K4 against its twin and against the K2 +
-                autograd chain on the frozen-sorted tracking layout (1/8
-                subset and full grid); K5 and K6 against their twins on the
-                entry layout (dup_side 3, entry_cap_factor 4, max_per_tile
-                8192), full frame and the frozen binning at a shifted
-                tracking pose, K6 twice bit for bit; max errors against the
-                stated tolerances; median kernel, twin and backward times;
-                each kernel's bound.
+                shuffled 1/8 tile subset (both timed on both); K3 against
+                K2's twin and K2 on the same residuals; K4 against its twin
+                and against the K2 + autograd chain on the frozen-sorted
+                tracking layout (1/8 subset and full grid); K5 and K6
+                against their twins on the entry layout (dup_side 3,
+                entry_cap_factor 4, max_per_tile 8192), full frame and the
+                frozen binning at a shifted tracking pose, K6 twice bit for
+                bit; max errors against the stated tolerances; median
+                kernel, twin and backward times; each kernel's bound.
   4. slice    - the port's GaussianSLAM, 12 frames of the bench protocol on
                 the synthetic room with const-speed tracking, the default
                 sorted configuration; K1/K2 launch counts on that run
@@ -58,17 +58,18 @@ def emit(obj):
 
 
 # Tolerances of the kernel-vs-twin check, and why:
-#  - K1 outputs: kernel and twin do the same per-(pixel, survivor) float32
-#    operations (the kernels are built with -fmad=false); they differ only in
-#    the order in which log T and the colour sums accumulate (running sum in
-#    the kernel, per-chunk sums in the twin), i.e. float32 rounding.
+#  - K1 outputs: kernel and twin take the same alpha decisions (the kernel
+#    rounds them with explicit intrinsics, csrc/alpha_box.cuh); they differ
+#    in how the sums accumulate (the kernel keeps T linear with FMA and takes
+#    log T once at the end, the twin sums log1p per chunk), i.e. float32
+#    rounding.
 #    rgb / alpha: 1e-3 absolute; depth sum (metres): 1e-3 + 1e-4 * |d|;
 #    log T: 1e-3 + 1e-4 * |log T|. Survivor counts and columns are exact.
 #    Chunks used may differ only on tiles whose largest log T sits at the
 #    -11.5 stop threshold to within rounding: at most 0.5% of tiles.
-#  - K2 grads: cross-tile sums by atomicAdd in a run-dependent order, plus
-#    the running-sum order above: per grad row, max abs err <= 1e-3 x the
-#    row's max |grad|.
+#  - K2 grads: cross-block sums by atomicAdd in a run-dependent order, plus
+#    the running-sum order above (K2 recovers T by reciprocals from K1's
+#    log T): per grad row, max abs err <= 1e-3 x the row's max |grad|.
 #  - K4 dpose (7,): the same replay as K2, summed per survivor and then
 #    over the tile in a fixed order; the twin sums K2's grads over all
 #    gaussians in another order: max abs err <= 1e-3 x max |dpose|.
@@ -113,14 +114,17 @@ TWIN_KEYS = ("fwd_twin_calls", "bwd_twin_calls", "window_twin_calls",
 # every bound_ms: HBM3 bandwidth and FP32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# FP32 operations a (pixel, survivor) pair needs, counted from the kernel
-# sources (a transcendental counts as one): every pair in a processed chunk
-# evaluates its Gaussian power (2 subtractions, 6 multiplies, 2 adds and
-# the test); a pair whose alpha passes the 1/255 test then needs K1's
-# exp / clip / log1p / transmittance / 4 colour sums (16), K2's replay and
-# 10 gradient terms (55), or K4's replay and 6 gradient terms (47). K4 adds
-# 42 multiply-adds (84 operations) per survivor for the contraction. K3
-# replays as K2, K5 composites as K1 and K6 replays as K2.
+# FP32 operations the function needs, counted from the kernel sources (a
+# transcendental counts as one). A survivor of a tile needs its alpha box
+# (csrc/alpha_box.cuh, 40), outside of which its alpha is zero for every
+# pixel, so only a pair inside the box needs its Gaussian power (2
+# subtractions, 6 multiplies, 2 adds and the test); a pair whose alpha
+# passes the 1/255 test then needs K1's exp / clip / log1p / transmittance /
+# 4 colour sums (16), K2's replay and 10 gradient terms (55), or K4's replay
+# and 6 gradient terms (47). K4 adds 42 multiply-adds (84 operations) per
+# survivor for the contraction. K3 replays as K2, K5 composites as K1 and
+# K6 replays as K2.
+OPS_BOX = 40
 OPS_TEST = 10
 OPS_CONTRIB = {"K1": 16, "K2": 55, "K3": 55, "K4": 47, "K5": 16, "K6": 55}
 OPS_K4_CONTRACT = 84
@@ -307,14 +311,16 @@ def _kernel_inputs(per_wall: int, n_map: int = 150000, seed: int = 0,
 
 
 def _work(attrs, tile_ids, out, cols, tile: int, tiles_x: int):
-    """What this run's data makes a compositing kernel do: (pairs, the
-    (pixel, survivor) pairs of the chunks K1 processed; contrib, those
-    whose alpha passed the 1/255 test; survivors replayed)."""
+    """What this run's data makes a compositing kernel do, in the chunks K1
+    processed: pairs, the (pixel, survivor) pairs; boxed, those inside
+    their survivor's alpha box; contrib, those whose alpha passed the 1/255
+    test; replayed, the survivors."""
     import torch
 
     from eags_slam_torch.ops.composite_sorted import (CHUNK, _chunk_alpha,
                                                       _chunk_attrs,
-                                                      _pixel_coords)
+                                                      _pixel_coords,
+                                                      alpha_box)
 
     eff = out[:, 6, 0].long()
     n_surv = out[:, 7, 0].long()
@@ -324,15 +330,31 @@ def _work(attrs, tile_ids, out, cols, tile: int, tiles_x: int):
     cols = torch.where(lane[None, :] < n_surv[:, None], cols,
                        torch.zeros_like(cols))
     pu, pv = _pixel_coords(tile_ids, tile, tiles_x)
-    contrib = 0
+    slot = torch.arange(CHUNK, device=cols.device)
+    boxed = contrib = 0
     with torch.no_grad():
         for ci in range(int(eff.max()) if eff.numel() else 0):
             n_valid = torch.where(ci < eff, n_surv - ci * CHUNK,
                                   torch.zeros_like(n_surv))
-            alpha = _chunk_alpha(_chunk_attrs(attrs, cols, ci), pu, pv,
-                                 n_valid)[0]
+            e = _chunk_attrs(attrs, cols, ci)
+            alpha = _chunk_alpha(e, pu, pv, n_valid)[0]
             contrib += int((alpha > 0).sum())
-    return replayed * tile * tile, contrib, replayed
+            box = alpha_box(e[0], e[1], e[2], e[3], e[4], e[5])
+            boxed += int(((box[0][:, None] <= pu[:, :, None])
+                          & (box[1][:, None] >= pu[:, :, None])
+                          & (box[2][:, None] <= pv[:, :, None])
+                          & (box[3][:, None] >= pv[:, :, None])
+                          & (slot[None, :] < n_valid[:, None])[:, None])
+                         .sum())
+    return {"pairs": replayed * tile * tile, "boxed": boxed,
+            "contrib": contrib, "replayed": replayed}
+
+
+def _ops(kernel: str, w: dict) -> int:
+    """FP32 operations `kernel` needs on the work `w` of `_work`."""
+    ops = (OPS_BOX * w["replayed"] + OPS_TEST * w["boxed"]
+           + OPS_CONTRIB[kernel] * w["contrib"])
+    return ops + (OPS_K4_CONTRACT * w["replayed"] if kernel == "K4" else 0)
 
 
 def _bound(nbytes: int, ops: int) -> dict:
@@ -462,14 +484,15 @@ def phase_kernels(per_wall: int, reps: int):
                "window_vs_k2_rel_to_rowmax": worst_wk,
                "tiles": int(tile_ids.shape[0])}
         if label == "subset":
+            res["k1_ms"] = _median_ms(lambda: cs.composite_sorted_fwd(*args),
+                                      reps)
             res["k2_ms"] = _median_ms(lambda: cs.composite_sorted_bwd(
                 attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
             res["k3_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_window(
                 attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
                 tiles_x, cfg.bands, cfg.seg_cap, GROUP), reps)
         if label == "full":
-            pairs, contrib, _ = _work(attrs, tile_ids, out_k, cols_k,
-                                      cfg.tile, tiles_x)
+            work = _work(attrs, tile_ids, out_k, cols_k, cfg.tile, tiles_x)
             res["k1_ms"] = _median_ms(lambda: cs.composite_sorted_fwd(*args),
                                       reps)
             res["k1_plain_ms"] = _median_ms(
@@ -482,32 +505,27 @@ def phase_kernels(per_wall: int, reps: int):
             res["k3_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_window(
                 attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
                 tiles_x, cfg.bands, cfg.seg_cap, GROUP), reps)
-            res["pairs"], res["contributing_pairs"] = pairs, contrib
+            res["pairs"], res["boxed_pairs"], res["contributing_pairs"] = (
+                work["pairs"], work["boxed"], work["contrib"])
             summary = {
                 "K1": {"max_abs_err": max(rep_f[c]["max_abs"] for c in
                                           ("r", "g", "b", "depth", "alpha")),
                        "ms": res["k1_ms"], "plain_ms": res["k1_plain_ms"],
                        **_bound(_nbytes(attrs, seg_start, seg_cnt, tile_ids,
-                                        out_k, cols_k),
-                                OPS_TEST * pairs
-                                + OPS_CONTRIB["K1"] * contrib)},
+                                        out_k, cols_k), _ops("K1", work))},
                 "K2": {"max_abs_err": max(rep_b[c]["max_abs"] for c in
                                           rep_b if isinstance(rep_b[c], dict)),
                        "ms": res["k2_ms"], "plain_ms": res["k2_plain_ms"],
                        "max_rel_to_rowmax": worst,
                        **_bound(_nbytes(attrs, tile_ids, out_k, cols_k, dout,
-                                        g_k),
-                                OPS_TEST * pairs
-                                + OPS_CONTRIB["K2"] * contrib)},
+                                        g_k), _ops("K2", work))},
                 # K3's plain version is K2's twin (the same sums).
                 "K3": {"max_abs_err": max(rep_w[c]["max_abs"] for c in
                                           rep_w if isinstance(rep_w[c], dict)),
                        "ms": res["k3_ms"], "plain_ms": res["k2_plain_ms"],
                        "max_rel_to_rowmax": worst_w,
                        **_bound(_nbytes(attrs, seg_start, tile_ids, out_k,
-                                        cols_k, dout, g_w),
-                                OPS_TEST * pairs
-                                + OPS_CONTRIB["K3"] * contrib)},
+                                        cols_k, dout, g_w), _ops("K3", work))},
             }
         results[label] = res
         all_ok &= ok_f and ok_b and ok_w and ok_wk
@@ -607,14 +625,11 @@ def _check_k4(cfg, cam, gmap, subset, T, reps, gen):
             chain_rel <= TOL["chain_rel_to_max"] and \
             bool(torch.isfinite(g_k).all())
         if label == "subset":
-            pairs, contrib, replayed = _work(attrs, tile_ids, out, cols,
-                                             cfg.tile, tiles_x)
+            work = _work(attrs, tile_ids, out, cols, cfg.tile, tiles_x)
             summary = {"max_abs_err": err, "ms": r["k4_ms"],
                        "plain_ms": r["k4_plain_ms"],
                        **_bound(_k4_bytes(tile_ids, out, cols),
-                                OPS_TEST * pairs
-                                + OPS_CONTRIB["K4"] * contrib
-                                + OPS_K4_CONTRACT * replayed)}
+                                _ops("K4", work))}
         rep[label] = r
     return ok, rep, summary
 
@@ -726,8 +741,7 @@ def _check_entries(cam, gmap, reps, gen):
         ok &= ok_f and ok_b and zeros_ok and det_ok
         if label == "render":
             cols, tile_ids = ce._segments(ps, cnt)
-            pairs, contrib, _ = _work(ent, tile_ids, out_k, cols, cfg.tile,
-                                      tiles_x)
+            work = _work(ent, tile_ids, out_k, cols, cfg.tile, tiles_x)
             r["k5_ms"] = _median_ms(lambda: ce.composite_entries_fwd(
                 ent, ps, cnt, cfg.tile, tiles_x), reps)
             r["k5_plain_ms"] = _median_ms(
@@ -739,21 +753,20 @@ def _check_entries(cam, gmap, reps, gen):
                 lambda: ce.composite_entries_bwd_plain(
                     ent, ps, cnt, out_k, dout, cfg.tile, tiles_x),
                 max(3, reps // 4))
-            r["pairs"], r["contributing_pairs"] = pairs, contrib
+            r["pairs"], r["boxed_pairs"], r["contributing_pairs"] = (
+                work["pairs"], work["boxed"], work["contrib"])
             summary = {
                 "K5": {"max_abs_err": max(rep_f[c]["max_abs"] for c in
                                           ("r", "g", "b", "depth", "alpha")),
                        "ms": r["k5_ms"], "plain_ms": r["k5_plain_ms"],
                        **_bound(_entries_bytes(ps, cnt, out_k),
-                                OPS_TEST * pairs
-                                + OPS_CONTRIB["K5"] * contrib)},
+                                _ops("K5", work))},
                 "K6": {"max_abs_err": max(rep_b[c]["max_abs"] for c in
                                           rep_b if isinstance(rep_b[c], dict)),
                        "ms": r["k6_ms"], "plain_ms": r["k6_plain_ms"],
                        "max_rel_to_rowmax": worst,
                        **_bound(_entries_bytes(ps, cnt, out_k, g_k),
-                                OPS_TEST * pairs
-                                + OPS_CONTRIB["K6"] * contrib)},
+                                _ops("K6", work))},
             }
         rep[label] = r
     return ok, rep, summary

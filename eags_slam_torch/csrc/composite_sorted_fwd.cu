@@ -6,64 +6,76 @@
 // eags_slam_torch/ops/composite_sorted.py (see its module docstring).
 //
 // What bounds it on the card: per tile, the candidate test reads 4 floats of
-// up to bands * seg_cap columns (<= 48 KB at seg_cap 1024), and compositing
-// is ~25 FP32 operations plus one exp per (pixel, survivor) pair -- at
-// 1200x680, tile 32 and ~1000 survivors per tile that is ~2e10 flops, so the
-// kernel is bound by FP32/SFU instruction throughput, not by memory traffic.
+// up to bands * seg_cap columns (<= 48 KB at seg_cap 1024); compositing is
+// ~10 FP32 operations to test a (pixel, survivor) pair and ~16 more plus an
+// exp when it contributes. At 1200x680, tile 32 the kernels map has 629 M
+// pairs in the processed chunks, 18% of them contributing: FP32 / SFU
+// instruction throughput bounds it, not memory traffic.
 //
 // Design, and how it answers the TPU version:
-//  - One thread block per selected tile, 256 threads, each thread owning
-//    PX/256 pixels in registers (tile 16/32/64 -> 1/4/16 pixels), so the
-//    per-pixel transmittance and colour sums never leave registers.
+//  - One block per selected tile: the tile-wide stop (no pixel with log T
+//    > -11.5, tested once per chunk with __syncthreads_or, exactly like the
+//    TPU while_loop condition) couples all of a tile's pixels. At tile 32
+//    the block has 512 threads (two pixels a thread), or 1024 (one) when
+//    the grid has no more tiles than the card has SMs, as the 1/8 tracking
+//    subset (104 tiles): 32 warps then on each busy SM.
+//  - Each warp owns a compact 8 x (4 * PPT) patch of the tile (lane: 8
+//    wide x 4 tall, its PPT pixels 4 rows apart), so most survivors miss
+//    most patches.
+//  - When a chunk of 128 survivors is staged in shared memory, one thread
+//    per survivor also computes its conservative alpha box (alpha_box.cuh).
+//    Each warp then tests the 128 boxes against its patch, one per lane
+//    and ballot, and walks only the survivors whose box meets it. The box
+//    never drops a pair with nonzero alpha, so the skip is exact.
+//  - The alpha decision is rounded as the twin rounds it (twin_alpha); the
+//    library is otherwise built with FMA. Transmittance is kept linear (T
+//    *= 1 - alpha, rescaled by 2^64 when it falls below 2^-64, where the
+//    weights it gives are zero), and log T is written once at the end:
+//    one multiply per contributing pair instead of an exp and a log1p.
 //  - The TPU ranked candidates with all-pairs compares and gathered chunks
-//    with one-hot matmuls (the MXU was the only fast path). Here the covered
-//    candidates are compacted into shared memory with a shared counter and
-//    ordered by a block-wide bitonic sort of their unique 32-bit keys, which
-//    gives the same order as the TPU rank pass.
-//  - The sorted survivor columns are written out (S, capt) for the backward
-//    replay instead of the TPU's per-lane rank array.
-//  - Chunks of 128 survivors are staged in shared memory; every thread walks
-//    the chunk front to back for its pixels. The tile-wide stop
-//    (no pixel with log T > -11.5) is checked once per chunk with
-//    __syncthreads_or, exactly like the TPU while_loop condition; it is not
-//    3DGS's per-pixel early exit.
-//  - Built with -fmad=false so that the exponent and alpha rounding follow
-//    the plain twin operation for operation.
+//    with one-hot matmuls. Here the covered candidates are compacted into
+//    shared memory with a shared counter and ordered by a block-wide
+//    bitonic sort of their unique 32-bit keys (the TPU rank order); the
+//    sorted columns are written out (S, capt) for the backward replay.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "alpha_box.cuh"
 
 namespace {
 
 constexpr int CHUNK = 128;
-constexpr int NTHREADS = 256;
 constexpr int MAX_CAPT = 4096;
 constexpr int OUT_CH = 8;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float LOG_T_MIN = -11.5f;
 constexpr int KEY_PAD = 0x7fffffff;
+constexpr float LN2_64 = 44.3614195558365f;   // 64 ln 2
 
-template <int PPT>
-__global__ void __launch_bounds__(NTHREADS)
+template <int TILE, int PPT>
+__global__ void __launch_bounds__(TILE * TILE / PPT)
 fwd_kernel(const float* __restrict__ attrs, int64_t npad,
            const int* __restrict__ seg_start, const int* __restrict__ seg_cnt,
-           const int* __restrict__ tile_ids, int tile, int tiles_x,
-           int bands, int seg_cap, float* __restrict__ out,
-           int* __restrict__ cols_out) {
+           const int* __restrict__ tile_ids, int tiles_x, int bands,
+           int seg_cap, float* __restrict__ out, int* __restrict__ cols_out) {
+  constexpr int NT = TILE * TILE / PPT;
+  constexpr int PATCH_H = 4 * PPT;
+  constexpr int NWX = TILE / 8;
+  static_assert(NT % 32 == 0 && NT >= CHUNK && TILE % PATCH_H == 0, "");
   __shared__ int s_key[MAX_CAPT];
   __shared__ int s_col[MAX_CAPT];
   __shared__ float s_attr[10][CHUNK];
+  __shared__ float4 s_box[CHUNK];
   __shared__ int s_count;
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
   const int tc = tile_ids[s];
   const int capt = bands * seg_cap;
-  const int px = tile * tile;
-  const float tx0 = (float)((tc % tiles_x) * tile);
-  const float ty0 = (float)((tc / tiles_x) * tile);
-  const float tx1 = tx0 + (float)tile;
-  const float ty1 = ty0 + (float)tile;
+  constexpr int px = TILE * TILE;
+  const float tx0 = (float)((tc % tiles_x) * TILE);
+  const float ty0 = (float)((tc / tiles_x) * TILE);
+  const float tx1 = tx0 + (float)TILE;
+  const float ty1 = ty0 + (float)TILE;
 
   if (tid == 0) s_count = 0;
   __syncthreads();
@@ -74,7 +86,7 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
     const int al = (start / CHUNK) * CHUNK;
     const int lead = start - al;
     const int cnt = min(seg_cnt[tc * bands + b], seg_cap - lead);
-    for (int i = tid; i < cnt; i += NTHREADS) {
+    for (int i = tid; i < cnt; i += NT) {
       const int col = start + i;
       const float u = attrs[col];
       const float v = attrs[npad + col];
@@ -97,14 +109,14 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
   // 2. Block bitonic sort of (key, col) over the next power of two.
   int n_sort = 1;
   while (n_sort < n_surv) n_sort <<= 1;
-  for (int i = n_surv + tid; i < n_sort; i += NTHREADS) {
+  for (int i = n_surv + tid; i < n_sort; i += NT) {
     s_key[i] = KEY_PAD;
     s_col[i] = 0;
   }
   __syncthreads();
   for (int k = 2; k <= n_sort; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < n_sort; i += NTHREADS) {
+      for (int i = tid; i < n_sort; i += NT) {
         const int ixj = i ^ j;
         if (ixj > i) {
           const bool up = (i & k) == 0;
@@ -124,19 +136,28 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
   }
 
   // 3. Persist the depth-ordered survivor columns for the backward replay.
-  for (int i = tid; i < n_surv; i += NTHREADS)
+  for (int i = tid; i < n_surv; i += NT)
     cols_out[(int64_t)s * capt + i] = s_col[i];
 
-  // 4. Front-to-back compositing in chunks of 128 survivors.
-  float pu[PPT], pv[PPT], log_t[PPT], acc[PPT][4];
+  // 4. Front-to-back compositing in chunks of 128 survivors; this warp's
+  //    patch is [px0, px0 + 7] x [py0, py0 + PATCH_H - 1] of the tile.
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int x0 = (warp % NWX) * 8;
+  const int y0 = (warp / NWX) * PATCH_H;
+  const float pu = tx0 + (float)(x0 + (lane & 7));
+  const float bx0 = tx0 + (float)x0, bx1 = bx0 + 7.0f;
+  const float by0 = ty0 + (float)y0, by1 = by0 + (float)(PATCH_H - 1);
+  float pv[PPT], tm[PPT], acc[PPT][4];
+  int ex[PPT];
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
-    const int p = tid + q * NTHREADS;
-    pu[q] = tx0 + (float)(p % tile);
-    pv[q] = ty0 + (float)(p / tile);
-    log_t[q] = 0.0f;
+    pv[q] = ty0 + (float)(y0 + (lane >> 3) + 4 * q);
+    tm[q] = 1.0f;
+    ex[q] = 0;
     acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
   }
+  const float t_stop = expf(LOG_T_MIN);
   const int num_chunks = (n_surv + CHUNK - 1) / CHUNK;
   int eff = 0;
   bool go = num_chunks > 0;
@@ -144,38 +165,65 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
     const int base = eff * CHUNK;
     const int jmax = min(CHUNK, n_surv - base);
     __syncthreads();
-    for (int i = tid; i < 10 * CHUNK; i += NTHREADS) {
-      const int ch = i / CHUNK;
-      const int j = i % CHUNK;
-      s_attr[ch][j] = j < jmax ? attrs[ch * npad + s_col[base + j]] : 0.0f;
+    if (tid < CHUNK) {
+      float a[10];
+      if (tid < jmax) {
+        const int col = s_col[base + tid];
+#pragma unroll
+        for (int ch = 0; ch < 10; ++ch) a[ch] = attrs[ch * npad + col];
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < 10; ++ch) a[ch] = 0.0f;
+      }
+#pragma unroll
+      for (int ch = 0; ch < 10; ++ch) s_attr[ch][tid] = a[ch];
+      s_box[tid] = eags::alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
     }
     __syncthreads();
-    for (int j = 0; j < jmax; ++j) {
-      const float mu = s_attr[0][j], mv = s_attr[1][j];
-      const float ca = s_attr[2][j], cb = s_attr[3][j], cc = s_attr[4][j];
-      const float op = s_attr[5][j];
-      const float f0 = s_attr[6][j], f1 = s_attr[7][j];
-      const float f2 = s_attr[8][j], f3 = s_attr[9][j];
+    // This warp's survivors: a 128-bit mask from one box test a lane per
+    // 32 survivors, walked front to back.
+    unsigned wm[CHUNK / 32];
 #pragma unroll
-      for (int q = 0; q < PPT; ++q) {
-        const float du = pu[q] - mu;
-        const float dv = pv[q] - mv;
-        const float power = -0.5f * (ca * du * du + cc * dv * dv) - cb * du * dv;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(op * expf(power), ALPHA_MAX);
-        if (alpha < ALPHA_MIN) continue;
-        const float w = alpha * expf(log_t[q]);
-        acc[q][0] += w * f0;
-        acc[q][1] += w * f1;
-        acc[q][2] += w * f2;
-        acc[q][3] += w * f3;
-        log_t[q] += log1pf(-alpha);
+    for (int k = 0; k < CHUNK / 32; ++k) {
+      const int j = k * 32 + lane;
+      wm[k] = __ballot_sync(0xffffffffu,
+                            j < jmax &&
+                                eags::box_meets(s_box[j], bx0, bx1, by0, by1));
+    }
+#pragma unroll
+    for (int k = 0; k < CHUNK / 32; ++k) {
+      for (unsigned m = wm[k]; m; m &= m - 1) {
+        const int j = k * 32 + __ffs(m) - 1;
+        const float mu = s_attr[0][j], mv = s_attr[1][j];
+        const float ca = s_attr[2][j], cb = s_attr[3][j], cc = s_attr[4][j];
+        const float op = s_attr[5][j];
+        const float f0 = s_attr[6][j], f1 = s_attr[7][j];
+        const float f2 = s_attr[8][j], f3 = s_attr[9][j];
+#pragma unroll
+        for (int q = 0; q < PPT; ++q) {
+          float du, dv, gg, alpha;
+          if (!eags::twin_alpha(pu, pv[q], mu, mv, ca, cb, cc, op, du, dv, gg,
+                                alpha))
+            continue;
+          if (ex[q] == 0) {
+            const float w = alpha * tm[q];
+            acc[q][0] += w * f0;
+            acc[q][1] += w * f1;
+            acc[q][2] += w * f2;
+            acc[q][3] += w * f3;
+          }
+          tm[q] *= 1.0f - alpha;
+          if (tm[q] < 0x1p-64f) {
+            tm[q] *= 0x1p64f;
+            ++ex[q];
+          }
+        }
       }
     }
     ++eff;
     int live = 0;
 #pragma unroll
-    for (int q = 0; q < PPT; ++q) live |= log_t[q] > LOG_T_MIN;
+    for (int q = 0; q < PPT; ++q) live |= ex[q] == 0 && tm[q] > t_stop;
     const int any_live = __syncthreads_or(live);
     go = (eff < num_chunks) && any_live;
   }
@@ -184,20 +232,34 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
   float* o = out + (int64_t)s * OUT_CH * px;
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
-    const int p = tid + q * NTHREADS;
+    const int p = (y0 + (lane >> 3) + 4 * q) * TILE + x0 + (lane & 7);
     o[0 * px + p] = acc[q][0];
     o[1 * px + p] = acc[q][1];
     o[2 * px + p] = acc[q][2];
     o[3 * px + p] = acc[q][3];
-    o[4 * px + p] = 1.0f - expf(log_t[q]);
-    o[5 * px + p] = log_t[q];
+    o[4 * px + p] = 1.0f - (ex[q] == 0 ? tm[q] : 0.0f);
+    o[5 * px + p] = logf(tm[q]) - (float)ex[q] * LN2_64;
     o[6 * px + p] = (float)eff;
     o[7 * px + p] = (float)n_surv;
   }
 }
 
+template <int TILE, int PPT>
+int launch(const float* attrs, int64_t npad, const int* seg_start,
+           const int* seg_cnt, const int* tile_ids, int n_sel, int tiles_x,
+           int bands, int seg_cap, float* out, int* cols, cudaStream_t st) {
+  fwd_kernel<TILE, PPT><<<n_sel, TILE * TILE / PPT, 0, st>>>(
+      attrs, npad, seg_start, seg_cnt, tile_ids, tiles_x, bands, seg_cap,
+      out, cols);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// At tile 32, two pixels a thread (512 threads a tile) when the grid has
+// more tiles than the card has SMs, one (1024 threads) when it has no more,
+// as the tracker's 1/8 subset (104 tiles on 132 SMs): one block an SM then,
+// and the larger block puts 32 warps on it.
 extern "C" int eags_composite_sorted_fwd(
     const float* attrs, int64_t npad, const int* seg_start,
     const int* seg_cnt, const int* tile_ids, int n_sel, int tile,
@@ -205,25 +267,20 @@ extern "C" int eags_composite_sorted_fwd(
     void* stream) {
   if (bands * seg_cap > MAX_CAPT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(n_sel), block(NTHREADS);
   switch (tile) {
     case 16:
-      fwd_kernel<1><<<grid, block, 0, st>>>(attrs, npad, seg_start, seg_cnt,
-                                            tile_ids, tile, tiles_x, bands,
-                                            seg_cap, out, cols);
-      break;
+      return launch<16, 1>(attrs, npad, seg_start, seg_cnt, tile_ids, n_sel,
+                           tiles_x, bands, seg_cap, out, cols, st);
     case 32:
-      fwd_kernel<4><<<grid, block, 0, st>>>(attrs, npad, seg_start, seg_cnt,
-                                            tile_ids, tile, tiles_x, bands,
-                                            seg_cap, out, cols);
-      break;
+      if (n_sel <= eags::sm_count())
+        return launch<32, 1>(attrs, npad, seg_start, seg_cnt, tile_ids,
+                             n_sel, tiles_x, bands, seg_cap, out, cols, st);
+      return launch<32, 2>(attrs, npad, seg_start, seg_cnt, tile_ids, n_sel,
+                           tiles_x, bands, seg_cap, out, cols, st);
     case 64:
-      fwd_kernel<16><<<grid, block, 0, st>>>(attrs, npad, seg_start, seg_cnt,
-                                             tile_ids, tile, tiles_x, bands,
-                                             seg_cap, out, cols);
-      break;
+      return launch<64, 8>(attrs, npad, seg_start, seg_cnt, tile_ids, n_sel,
+                           tiles_x, bands, seg_cap, out, cols, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

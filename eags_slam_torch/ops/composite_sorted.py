@@ -32,6 +32,9 @@ Semantics (identical in kernel and twin):
   - The backward mirrors `_replay_chunks` term by term, including dop =
     sum(d_alpha * g) with g = exp(min(power, 0)) where alpha was clipped at
     0.99, and the max(1 - alpha, 1e-6) guard. Grads land in (16, Npad).
+  - K1 and K2 skip the (pixel, survivor) pairs outside each survivor's
+    conservative alpha box (`alpha_box`), where alpha is zero: the skip
+    changes no sum.
   - K3 computes K2's grads with another accumulation (`rmw_window`): a
     block takes `group` consecutive entries of tile_ids and keeps, per
     band, a window of the band's seg_cap lanes in shared memory, adding
@@ -182,6 +185,48 @@ def _chunk_alpha(e, pu, pv, n_valid):
     return alpha, g, du, dv
 
 
+# The alpha box of csrc/alpha_box.cuh (K1 and K2 skip a warp's patch that
+# misses it). Widening: the float32 quadratic form may undershoot the exact
+# one by ~12 eps kappa of itself, kappa = (a + c)^2 / det.
+BOX_KAPPA_EPS = 64.0 * 2.0 ** -23
+BOX_T_PAD = 1e-4
+BOX_REL = 1.0001
+BOX_ABS = 1e-3
+BOX_POS = 4.0 * 2.0 ** -23
+
+
+def alpha_box(mu, mv, ca, cb, cc, op):
+    """Conservative pixel box per gaussian outside of which `_chunk_alpha`
+    is zero, in float32 as `eags::alpha_box` computes it: (4, ...) rows
+    u_lo, u_hi, v_lo, v_hi. The ellipse op * exp(power) >= 1/255 has
+    half-widths sqrt(2 t c / det) in u and sqrt(2 t a / det) in v, t =
+    ln(255 op); 2 t becomes 2 (t + 1e-4) / (1 - 64 eps kappa), and the
+    half-widths grow by 1e-4 relative, 1e-3 px and 4 ulp of the mean.
+    op < 1/255 gives an empty box; a conic that is not positive definite or
+    has 64 eps kappa >= 0.5 gives an unbounded one (no cull)."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=mu.device)
+
+    det = ca * cc - cb * cb
+    tr = ca + cc
+    slack = f32(BOX_KAPPA_EPS) * (tr * tr / det)
+    t = torch.clamp(torch.log(f32(255.0) * op), min=0.0)
+    q = f32(2.0) * (t + f32(BOX_T_PAD)) / (f32(1.0) - slack)
+    hu = (torch.sqrt(q * cc / det) * f32(BOX_REL) + f32(BOX_ABS)
+          + f32(BOX_POS) * mu.abs())
+    hv = (torch.sqrt(q * ca / det) * f32(BOX_REL) + f32(BOX_ABS)
+          + f32(BOX_POS) * mv.abs())
+    box = torch.stack([mu - hu, mu + hu, mv - hv, mv + hv])
+    inf = float("inf")
+    unbounded = torch.tensor([-inf, inf, -inf, inf], device=mu.device)
+    empty = torch.tensor([inf, -inf, inf, -inf], device=mu.device)
+    shape = (4,) + (1,) * mu.dim()
+    no_cull = (~(op >= ALPHA_MIN) | ~(ca > 0.0) | ~(cc > 0.0) | ~(det > 0.0)
+               | ~(slack < 0.5))
+    box = torch.where(no_cull[None], unbounded.view(shape), box)
+    return torch.where((op < ALPHA_MIN)[None], empty.view(shape), box)
+
+
 @torch.no_grad()
 def composite_sorted_fwd_plain(attrs, seg_start, seg_cnt, tile_ids,
                                tile: int, tiles_x: int, bands: int,
@@ -319,10 +364,20 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("composite_sorted_fwd.cu", "composite_sorted_bwd.cu",
            "composite_sorted_bwd_window.cu", "pose_grad_sorted.cu",
            "composite_entries_fwd.cu", "composite_entries_bwd.cu")
-HEADERS = ("replay.cuh",)
+HEADERS = ("replay.cuh", "alpha_box.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eags_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
+# K1 and K2 round their alpha decisions as the twin does with explicit
+# intrinsics (alpha_box.cuh) and use FMA elsewhere; K3-K6 keep the
+# whole-file -fmad=false they were checked with.
+NO_FMAD = ("composite_sorted_bwd_window.cu", "pose_grad_sorted.cu",
+           "composite_entries_fwd.cu", "composite_entries_bwd.cu")
+
+
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + (["-fmad=false"] if name in NO_FMAD else [])
+
 
 _LIB = None
 build_seconds = None
@@ -357,7 +412,8 @@ def build_kernels(verbose: bool = False) -> Path:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(" ".join(_flags(name)).encode())
     lib = BUILD_DIR / f"libeags_composite_{h.hexdigest()[:16]}.so"
     if lib.exists():
         build_seconds = 0.0
@@ -368,7 +424,7 @@ def build_kernels(verbose: bool = False) -> Path:
     ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (Path(n).stem + ".o") for n in SOURCES]
-        _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
+        _run_all([[nvcc, *_flags(n), *ptxas, "-c", "-o", str(o),
                    str(CSRC / n)] for n, o in zip(SOURCES, objs)],
                  "nvcc", verbose)
         tmp_lib = Path(tmp) / lib.name

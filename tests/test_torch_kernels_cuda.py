@@ -1,7 +1,13 @@
 """The CUDA kernels against their plain PyTorch twins, on the card: K1 /
 K2 / K4, K4's whole path against the K2 + autograd chain, K3 against K2's
 twin and K2 on the hazard scenes of the windowed backward, and K5 / K6 on
-the entry-binned layout (full frame and frozen binning).
+the entry-binned layout (full frame and frozen binning). K1 and K2 cull
+with an alpha box per survivor and split tiles over warp patches (K2 also
+over blocks): their cases add the 1/8 tile subset with shuffled and
+repeated ids, tiles 16 / 32 / 64, and a cull hazard scene (radius-capped
+survivors, opacity at and just above 1/255 and near 1, near-singular and
+elongated conics, means on and just off patch borders), each with K3 and
+K4 held against K2's twin on the new K1's columns.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -23,8 +29,9 @@ from eags_slam_torch.core.camera import Camera
 from eags_slam_torch.ops import composite_entries as ce
 from eags_slam_torch.ops import composite_sorted as cs
 from eags_slam_torch.ops import rasterizer as R
-from eags_slam_torch.ops.rasterizer import (RasterConfig, _sorted_attrs,
-                                            _v2_radius_cap, project_gaussians)
+from eags_slam_torch.ops.rasterizer import (RasterConfig, _Projected,
+                                            _sorted_attrs, _v2_radius_cap,
+                                            project_gaussians)
 from eags_slam_torch.slam.tracker import _rel_matrix
 
 pytestmark = pytest.mark.cuda
@@ -324,3 +331,158 @@ def test_entry_kernels_on_frozen_binning(cuda_device):
 
     gk, gt = pose_grad(cuda_device), pose_grad("cpu")
     assert float((gk - gt).abs().max()) <= 1e-3 * float(gt.abs().max())
+
+
+# Wider than CAM so that the 1/8 tile subset holds several tiles.
+CAM2 = Camera(fx=180.0, fy=180.0, cx=127.5, cy=95.5, width=256, height=192)
+
+
+def _hazard_inputs(tile, seg_cap, n, device, seed=0):
+    """The cull's hazards, built as projected gaussians: a third large
+    enough that `_v2_radius_cap` clips their radius; opacity uniform, at
+    1/255 and just above it, or within 1e-6-1e-2 of 1; axis ratios up to
+    1e3 at random angles, some conics within float32 of singular; means on
+    patch borders (multiples of 4 and 8), half a pixel off them, or 1e-3 px
+    outside them; and a stack of near-opaque gaussians that drives T far
+    below 2^-64, where the kernels rescale it."""
+    rng = np.random.default_rng(seed)
+    cfg = RasterConfig(tile=tile, dup_side=3, seg_cap=seg_cap, bands=3)
+    cap = _v2_radius_cap(cfg)
+    s1 = np.where(rng.uniform(size=n) < 1 / 3, rng.uniform(12.0, 40.0, n),
+                  rng.uniform(0.4, 6.0, n))
+    s2 = s1 / np.exp(rng.uniform(0.0, np.log(1e3), n))
+    th = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    cxx = c * c * s1 ** 2 + s * s * s2 ** 2
+    cyy = s * s * s1 ** 2 + c * c * s2 ** 2
+    cxy = c * s * (s1 ** 2 - s2 ** 2)
+    det = cxx * cyy - cxy * cxy
+    conic = np.stack([cyy / det, -cxy / det, cxx / det], 1)
+    sing = rng.uniform(size=n) < 0.1          # b^2 within float32 of a c
+    conic[sing, 1] = np.sign(conic[sing, 1] + 1e-30) * np.sqrt(
+        conic[sing, 0] * conic[sing, 2]) * (1.0 - 1e-7)
+    lo = np.float32(1.0 / 255.0)
+    kind = rng.integers(0, 4, n)
+    op = np.where(kind == 0, rng.uniform(0.0, 1.0, n), np.where(
+        kind == 1, lo * (1.0 + 10.0 ** rng.uniform(-7, -2, n)), np.where(
+            kind == 2, 1.0 - 10.0 ** rng.uniform(-6, -2, n), lo)))
+    mu = rng.uniform(-20.0, CAM2.width + 20.0, n)
+    mv = rng.uniform(-20.0, CAM2.height + 20.0, n)
+    snap = rng.integers(0, 4, n)
+    off = np.choose(snap, [np.zeros(n), np.full(n, 0.5), np.full(n, 1e-3),
+                           np.full(n, -1e-3)])
+    mu = np.where(snap > 0, np.round(mu / 8.0) * 8.0 - 0.5 + off, mu)
+    mv = np.where(snap > 0, np.round(mv / 4.0) * 4.0 - 0.5 + off, mv)
+    stack = rng.uniform(size=n) < 0.1
+    mu = np.where(stack, 100.0 + rng.uniform(-10.0, 10.0, n), mu)
+    mv = np.where(stack, 80.0 + rng.uniform(-10.0, 10.0, n), mv)
+    op = np.where(stack, 0.999, op)
+    radius = np.minimum(np.ceil(3.0 * s1), cap)
+    radius[rng.uniform(size=n) < 0.05] = 0.0
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    proj = _Projected(mean2d=f32(np.stack([mu, mv], 1)), conic=f32(conic),
+                      depth=f32(rng.uniform(1.0, 3.0, n)), radius=f32(radius),
+                      opacity=f32(op))
+    attrs, ss, sc = _sorted_attrs(proj, f32(rng.uniform(0, 1, (n, 3))), CAM2,
+                                  cfg)
+    assert bool((radius == cap).any()) and bool((op == lo).any())
+    tiles_x = -(-CAM2.width // tile)
+    return attrs.contiguous(), ss, sc, tiles_x, tiles_x * -(
+        -CAM2.height // tile)
+
+
+# More tiles at tile 32 (300) than an H100 has SMs (132): K1's wide grid.
+CAM3 = Camera(fx=450.0, fy=450.0, cx=319.5, cy=239.5, width=640, height=480)
+
+
+def _scene_inputs(tile, seg_cap, n, device, seed=0, cam=CAM2):
+    t = _scene(n, device, seed)
+    cfg = RasterConfig(tile=tile, dup_side=3, seg_cap=seg_cap, bands=3)
+    proj = project_gaussians(t["means"], t["q"], t["ls"], t["op"],
+                             torch.eye(4, device=device), cam, cfg,
+                             radius_cap=_v2_radius_cap(cfg))
+    attrs, ss, sc = _sorted_attrs(proj, t["col"], cam, cfg)
+    tiles_x = -(-cam.width // tile)
+    return attrs.contiguous(), ss, sc, tiles_x, tiles_x * -(
+        -cam.height // tile)
+
+
+def _fwd_close(out_k, cols_k, out_t, cols_t):
+    """chip_smoke.py's K1 check: rgb / alpha 1e-3, depth 1e-3 + 1e-4 |d|,
+    log T 1e-3 + 1e-4 |log T| where the twin's log T > -11.5, survivor
+    counts, columns and chunks used exact."""
+    for ch in range(6):
+        d = (out_k[:, ch] - out_t[:, ch]).abs()
+        ref = out_t[:, ch].abs()
+        if ch == 3:
+            bad = d > 1e-3 + 1e-4 * ref
+        elif ch == 5:
+            bad = (d > 1e-3 + 1e-4 * ref) & (out_t[:, 5] > -11.5)
+        else:
+            bad = d > 1e-3
+        assert not bool(bad.any()), ch
+    assert torch.equal(out_k[:, 6:], out_t[:, 6:])
+    n_surv = out_t[:, 7, 0].long()
+    lane = torch.arange(cols_k.shape[1], device=cols_k.device)
+    m = lane[None, :] < n_surv[:, None]
+    assert torch.equal(cols_k[m], cols_t[m])
+    assert int(n_surv.max()) > 0
+
+
+# (scene, tile, seg_cap, gaussians, tile ids): ids "full", or "eighth" (a
+# shuffled 1/8 of the tiles with two of them repeated, the tracker's subset)
+K12_CASES = {
+    "t16_full": ("scene", 16, 256, 2400, "full"),
+    "t32_eighth_repeated": ("scene", 32, 1024, 6000, "eighth"),
+    "t32_wide_full": ("wide", 32, 1024, 30000, "full"),
+    "t64_full": ("scene", 64, 1024, 6000, "full"),
+    "hazard_t16": ("hazard", 16, 256, 2000, "full"),
+    "hazard_t32": ("hazard", 32, 1024, 5000, "full"),
+    "hazard_t32_eighth": ("hazard", 32, 1024, 5000, "eighth"),
+    "hazard_t64": ("hazard", 64, 1024, 5000, "full"),
+}
+
+
+@pytest.mark.parametrize("case", list(K12_CASES))
+def test_culling_kernels_match_twins(case, cuda_device):
+    """K1 against its twin (survivors, columns, outputs, chunks used), K2
+    against its twin (1e-3 of each row's max), and K3 (against K2's twin)
+    and K4 (against its twin, with a random jacobian) on the new K1's
+    residuals."""
+    kind, tile, seg_cap, n, ids_kind = K12_CASES[case]
+    if kind == "hazard":
+        inputs = _hazard_inputs(tile, seg_cap, n, cuda_device)
+    else:
+        inputs = _scene_inputs(tile, seg_cap, n, cuda_device,
+                               cam=CAM3 if kind == "wide" else CAM2)
+    attrs, ss, sc, tx, num_tiles = inputs
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    if ids_kind == "eighth":
+        p = torch.randperm(num_tiles, generator=gen, device=cuda_device)[
+            : max(2, round(num_tiles / 8))]
+        ids = torch.cat([p, p[:2]])[torch.randperm(
+            p.shape[0] + 2, generator=gen, device=cuda_device)].to(
+                torch.int32)
+    args = (attrs, ss, sc, ids, tile, tx, 3, seg_cap)
+    out_k, cols_k = cs.composite_sorted_fwd(*args)
+    out_t, cols_t = cs.composite_sorted_fwd_plain(*args)
+    torch.cuda.synchronize()
+    _fwd_close(out_k, cols_k, out_t, cols_t)
+    dout = torch.randn(out_t.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    g_t = cs.composite_sorted_bwd_plain(attrs, ids, out_t, cols_t, dout,
+                                        tile, tx)
+    assert float(g_t[:10].abs().max()) > 0
+    _grads_close(cs.composite_sorted_bwd(attrs, ids, out_k, cols_k, dout,
+                                         tile, tx), g_t)
+    _grads_close(cs.composite_sorted_bwd_window(attrs, ss, ids, out_k,
+                                                cols_k, dout, tile, tx, 3,
+                                                seg_cap, 4), g_t)
+    jac = torch.randn((cs.P_MAX * cs.PJ, attrs.shape[1]), generator=gen,
+                      device=cuda_device)
+    d_k = cs.pose_grad_sorted(attrs, jac, ids, out_k, cols_k, dout, tile, tx)
+    d_t = cs.pose_grad_sorted_plain(attrs, jac, ids, out_t, cols_t, dout,
+                                    tile, tx)
+    torch.cuda.synchronize()
+    assert float((d_k - d_t).abs().max()) <= 1e-3 * float(d_t.abs().max())
