@@ -7,19 +7,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device   - CUDA must be present; card name and power limit
                 (nvidia-smi); TF32 off for matmuls and convolutions.
   2. build    - K1-K6 from eags_slam_torch/csrc: one nvcc per source, in
-                parallel, then one link.
+                parallel, then one link. K1, K2, K3 and K6 are built with
+                FMA (their alpha decisions round as the twin's through _rn
+                intrinsics), K4 and K5 with -fmad=false. With --ptxas, also
+                K3's and K6's registers, spills and shared bytes.
   3. kernels  - at the main-path shape (1200x680, tile 32) on the synthetic
                 room (>= 100k gaussians): K1 and K2 against their plain
                 PyTorch twins (bands 3, seg_cap 1024), full frame and a
                 shuffled 1/8 tile subset (both timed on both); K3 against
-                K2's twin and K2 on the same residuals; K4 against its twin
+                K2's twin and K2 on the same residuals, timed on both shapes
+                with the run length its wrapper takes; K4 against its twin
                 and against the K2 + autograd chain on the frozen-sorted
                 tracking layout (1/8 subset and full grid); K5 and K6
                 against their twins on the entry layout (dup_side 3,
                 entry_cap_factor 4, max_per_tile 8192), full frame and the
                 frozen binning at a shifted tracking pose, K6 twice bit for
-                bit; max errors against the stated tolerances; median
-                kernel, twin and backward times; each kernel's bound.
+                bit and timed on both; max errors against the stated
+                tolerances; median kernel, twin and backward times; each
+                kernel's bound (K2 / K3 also on the subset, K6 also on the
+                frozen binning).
   4. slice    - the port's GaussianSLAM, 12 frames of the bench protocol on
                 the synthetic room with const-speed tracking, the default
                 sorted configuration; K1/K2 launch counts on that run
@@ -237,6 +243,49 @@ def phase_build(verbose: bool):
     cs.load_kernels(verbose=verbose)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cs.build_seconds})
+    if verbose:
+        emit({"phase": "ptxas", **_ptxas_summary(cs.build_log)})
+
+
+# The mangled-name parts of K3's and K6's kernels in nvcc's output.
+PTXAS_KERNELS = {"K3": "bwd_window_kernel", "K6": "entries_bwd_kernel"}
+
+
+def _ptxas_summary(log: str) -> dict:
+    """Registers, spill bytes and static shared bytes of each instance of
+    K3's and K6's kernels, from nvcc -Xptxas -v (empty when the library
+    came from the build cache). Their dynamic shared memory is sized at
+    launch: K6's warp slots, 5120 bytes a warp; K3's quarter-chunk warp
+    slots, 1280 bytes a warp, and a CTA's share of the band rings, 40 bytes
+    a column (bands x seg_cap) over the cluster's CTAs."""
+    import re
+
+    out = {k: [] for k in PTXAS_KERNELS}
+    fn, spill = None, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            for k, part in PTXAS_KERNELS.items():
+                if part in fn:
+                    out[k].append({
+                        "function": fn, "registers": int(m.group(1)),
+                        "static_smem_bytes": int(smem.group(1)) if smem
+                        else 0,
+                        "spill_store_bytes": spill[0] if spill else None,
+                        "spill_load_bytes": spill[1] if spill else None})
+            fn, spill = None, None
+    return out
 
 
 def _median_ms(fn, reps: int):
@@ -482,7 +531,15 @@ def phase_kernels(per_wall: int, reps: int):
         res = {"fwd_ok": ok_f, "fwd": rep_f, "bwd_ok": ok_b, "bwd": rep_b,
                "window_ok": ok_w and ok_wk, "window_vs_twin": rep_w,
                "window_vs_k2_rel_to_rowmax": worst_wk,
-               "tiles": int(tile_ids.shape[0])}
+               "tiles": int(tile_ids.shape[0]),
+               "k3_run": cs.last_window_run}
+        work = _work(attrs, tile_ids, out_k, cols_k, cfg.tile, tiles_x)
+        k2_bound = _bound(_nbytes(attrs, tile_ids, out_k, cols_k, dout, g_k),
+                          _ops("K2", work))
+        k3_bound = _bound(_nbytes(attrs, seg_start, tile_ids, out_k, cols_k,
+                                  dout, g_w), _ops("K3", work))
+        res["k2_bound_ms"] = k2_bound["bound_ms"]
+        res["k3_bound_ms"] = k3_bound["bound_ms"]
         if label == "subset":
             res["k1_ms"] = _median_ms(lambda: cs.composite_sorted_fwd(*args),
                                       reps)
@@ -491,8 +548,13 @@ def phase_kernels(per_wall: int, reps: int):
             res["k3_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_window(
                 attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
                 tiles_x, cfg.bands, cfg.seg_cap, GROUP), reps)
+            # The subset's times and bounds beside the full grid's.
+            summary["K2"]["subset"] = {"ms": res["k2_ms"],
+                                       "bound_ms": k2_bound["bound_ms"]}
+            summary["K3"]["subset"] = {"ms": res["k3_ms"],
+                                       "bound_ms": k3_bound["bound_ms"],
+                                       "run": res["k3_run"]}
         if label == "full":
-            work = _work(attrs, tile_ids, out_k, cols_k, cfg.tile, tiles_x)
             res["k1_ms"] = _median_ms(lambda: cs.composite_sorted_fwd(*args),
                                       reps)
             res["k1_plain_ms"] = _median_ms(
@@ -516,16 +578,13 @@ def phase_kernels(per_wall: int, reps: int):
                 "K2": {"max_abs_err": max(rep_b[c]["max_abs"] for c in
                                           rep_b if isinstance(rep_b[c], dict)),
                        "ms": res["k2_ms"], "plain_ms": res["k2_plain_ms"],
-                       "max_rel_to_rowmax": worst,
-                       **_bound(_nbytes(attrs, tile_ids, out_k, cols_k, dout,
-                                        g_k), _ops("K2", work))},
+                       "max_rel_to_rowmax": worst, **k2_bound},
                 # K3's plain version is K2's twin (the same sums).
                 "K3": {"max_abs_err": max(rep_w[c]["max_abs"] for c in
                                           rep_w if isinstance(rep_w[c], dict)),
                        "ms": res["k3_ms"], "plain_ms": res["k2_plain_ms"],
-                       "max_rel_to_rowmax": worst_w,
-                       **_bound(_nbytes(attrs, seg_start, tile_ids, out_k,
-                                        cols_k, dout, g_w), _ops("K3", work))},
+                       "max_rel_to_rowmax": worst_w, "run": res["k3_run"],
+                       **k3_bound},
             }
         results[label] = res
         all_ok &= ok_f and ok_b and ok_w and ok_wk
@@ -687,7 +746,8 @@ def _check_entries(cam, gmap, reps, gen):
     the render layout at the map's pose and the frozen binning reprojected
     at the K4 check's shifted tracking pose. Each against its twin; K6 twice
     bit for bit and zero in the columns K5 did not composite; times and
-    bounds from the full-frame render layout."""
+    bounds from the full-frame render layout, K6's also from the frozen
+    binning."""
     import torch
 
     from eags_slam_torch.ops import composite_entries as ce
@@ -739,16 +799,25 @@ def _check_entries(cam, gmap, reps, gen):
              "fwd_ok": ok_f, "fwd": rep_f, "bwd_ok": ok_b, "bwd": rep_b,
              "unvisited_zero": zeros_ok, "k6_deterministic": det_ok}
         ok &= ok_f and ok_b and zeros_ok and det_ok
+        cols, tile_ids = ce._segments(ps, cnt)
+        work = _work(ent, tile_ids, out_k, cols, cfg.tile, tiles_x)
+        k6_bound = _bound(_entries_bytes(ps, cnt, out_k, g_k),
+                          _ops("K6", work))
+        r["k6_ms"] = _median_ms(lambda: ce.composite_entries_bwd(
+            ent, ps, cnt, out_k, dout, cfg.tile, tiles_x), reps)
+        r["k6_bound_ms"] = k6_bound["bound_ms"]
+        if label == "frozen":
+            # The tracking layout's K6 beside the render layout's.
+            summary["K6"]["frozen"] = {
+                "ms": r["k6_ms"], "bound_ms": k6_bound["bound_ms"],
+                "max_abs_err": max(rep_b[c]["max_abs"] for c in rep_b
+                                   if isinstance(rep_b[c], dict))}
         if label == "render":
-            cols, tile_ids = ce._segments(ps, cnt)
-            work = _work(ent, tile_ids, out_k, cols, cfg.tile, tiles_x)
             r["k5_ms"] = _median_ms(lambda: ce.composite_entries_fwd(
                 ent, ps, cnt, cfg.tile, tiles_x), reps)
             r["k5_plain_ms"] = _median_ms(
                 lambda: ce.composite_entries_fwd_plain(
                     ent, ps, cnt, cfg.tile, tiles_x), max(3, reps // 4))
-            r["k6_ms"] = _median_ms(lambda: ce.composite_entries_bwd(
-                ent, ps, cnt, out_k, dout, cfg.tile, tiles_x), reps)
             r["k6_plain_ms"] = _median_ms(
                 lambda: ce.composite_entries_bwd_plain(
                     ent, ps, cnt, out_k, dout, cfg.tile, tiles_x),
@@ -764,9 +833,7 @@ def _check_entries(cam, gmap, reps, gen):
                 "K6": {"max_abs_err": max(rep_b[c]["max_abs"] for c in
                                           rep_b if isinstance(rep_b[c], dict)),
                        "ms": r["k6_ms"], "plain_ms": r["k6_plain_ms"],
-                       "max_rel_to_rowmax": worst,
-                       **_bound(_entries_bytes(ps, cnt, out_k, g_k),
-                                _ops("K6", work))},
+                       "max_rel_to_rowmax": worst, **k6_bound},
             }
         rep[label] = r
     return ok, rep, summary
@@ -943,7 +1010,9 @@ def main():
                         "max_abs_err": s.get("max_abs_err"),
                         "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
                         "bound_ms": s.get("bound_ms"),
-                        "bound_by": s.get("bound_by"), "library_ms": None})
+                        "bound_by": s.get("bound_by"), "library_ms": None,
+                        **{k: s[k] for k in ("run", "subset", "frozen")
+                           if k in s}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

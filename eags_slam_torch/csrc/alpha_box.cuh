@@ -1,6 +1,6 @@
-// What K1 (composite_sorted_fwd.cu) and K2 (composite_sorted_bwd.cu)
-// share: the two per-pair pieces below, and the card's SM count, from which
-// both pick their block size.
+// What K1 (composite_sorted_fwd.cu) and the warp-patch backward kernels K2,
+// K3 and K6 (warp_patch.cuh) share: the two per-pair pieces below, and the
+// card's SM count, from which K1, K2 and K6 pick their block size.
 //
 //  - twin_alpha: the alpha of one (pixel, survivor) pair, rounded as the
 //    plain twin (`_chunk_alpha` in ops/composite_sorted.py) rounds it:

@@ -41,6 +41,8 @@
 //    values a lane keeps), after which 10 of its lane pairs hold one
 //    channel each and write the warp's shared slot [warp][channel][j] in
 //    one store, without atomics (a warp's mask marks the slots it wrote).
+//    The patch, the replay step and the reduction are warp_patch.cuh's,
+//    shared with K3 and K6.
 //    At the end of the chunk the block adds the warps' slots in a fixed
 //    order and makes one global atomicAdd per (survivor, channel) that is
 //    nonzero: neighbouring tiles and quadrants
@@ -49,65 +51,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "alpha_box.cuh"
+#include "warp_patch.cuh"
 
 namespace {
 
-constexpr int CHUNK = 128;
-constexpr int OUT_CH = 8;
-constexpr int NG = 10;
-constexpr float LN2_64_INV = 0.0225421100138f;   // 1 / (64 ln 2)
-constexpr float LN2_64 = 44.3614195558365f;
-
-// Transposing reduction of v[10] over the 32 lanes of a warp. Returns the
-// warp's total of channel `ch` (set here; -1 when this lane holds none, and
-// only the even lane of each holding pair reports a channel).
-__device__ __forceinline__ float reduce10(const float (&v)[NG], int lane,
-                                          int& ch) {
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
-  // xor 16: keep channels 5 * b4 + [0, 5).
-  float a[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const float send = b4 ? v[k] : v[5 + k];
-    const float keep = b4 ? v[5 + k] : v[k];
-    a[k] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-  }
-  // xor 8: keep a[0..2] (b3 = 0) or a[3..4] (b3 = 1).
-  float b[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float lo = a[k];
-    const float hi = k < 2 ? a[3 + k] : 0.0f;
-    const float send = b3 ? lo : hi;
-    const float keep = b3 ? hi : lo;
-    b[k] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
-  }
-  // xor 4: keep b[0..1] (b2 = 0) or b[2] (b2 = 1).
-  float c[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float lo = b[k];
-    const float hi = k < 1 ? b[2] : 0.0f;
-    const float send = b2 ? lo : hi;
-    const float keep = b2 ? hi : lo;
-    c[k] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
-  }
-  // xor 2: keep c[0] (b1 = 0) or c[1] (b1 = 1); xor 1: the lane pair.
-  float d = (b1 ? c[1] : c[0]) +
-            __shfl_xor_sync(0xffffffffu, b1 ? c[0] : c[1], 2);
-  d += __shfl_xor_sync(0xffffffffu, d, 1);
-  const int local = (b3 ? 3 : 0) + (b2 ? 2 : 0) + (b1 ? 1 : 0);
-  const bool valid = (lane & 1) == 0 && (b3 ? !b2 : local < 3);
-  ch = valid ? (b4 ? 5 : 0) + local : -1;
-  return d;
-}
-
-// The side of the square region of a tile one block takes: the whole tile
-// at 16, a quadrant at 32 and 64.
-__host__ __device__ constexpr int region(int tile) {
-  return tile > 16 ? tile / 2 : tile;
-}
+using eags::CHUNK;
+using eags::MASK_WORDS;
+using eags::NG;
+using eags::OUT_CH;
+using eags::region;
 
 template <int TILE, int PPT>
 __global__ void __launch_bounds__(region(TILE) * region(TILE) / PPT)
@@ -128,7 +80,7 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
   __shared__ float4 s_box[CHUNK];
   __shared__ float s_warp[NWARPS][NG][CHUNK];
   __shared__ int s_col[CHUNK];
-  __shared__ unsigned s_wmask[NWARPS][CHUNK / 32];
+  __shared__ unsigned s_wmask[NWARPS][MASK_WORDS];
 
   const int s = blockIdx.y;
   const int part = blockIdx.x;
@@ -137,8 +89,6 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
   const int warp = tid >> 5;
   const int tc = tile_ids[s];
   constexpr int px = TILE * TILE;
-  const int rx0 = (part % PARTS) * RS;
-  const int ry0 = (part / PARTS) * RS;
   const float tx0 = (float)((tc % tiles_x) * TILE);
   const float ty0 = (float)((tc / tiles_x) * TILE);
   const float* o = out + (int64_t)s * OUT_CH * px;
@@ -146,31 +96,11 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
   const int eff = (int)o[6 * px];
   const int n_surv = (int)o[7 * px];
 
-  // This warp's patch bounds, in pixel centres.
-  const int x0 = rx0 + (warp % NWX) * 8;
-  const int y0 = ry0 + (warp / NWX) * PATCH_H;
-  const float bx0 = tx0 + (float)x0, bx1 = bx0 + 7.0f;
-  const float by0 = ty0 + (float)y0, by1 = by0 + (float)(PATCH_H - 1);
-  const float pu = tx0 + (float)(x0 + (lane & 7));
-
-  float pv[PPT], d4[PPT][4], dA[PPT], tm[PPT], bsum[PPT];
-  int ex[PPT];
-#pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    const int y = y0 + (lane >> 3) + 4 * q;
-    const int p = y * TILE + x0 + (lane & 7);
-    pv[q] = ty0 + (float)y;
-    d4[q][0] = g[0 * px + p];
-    d4[q][1] = g[1 * px + p];
-    d4[q][2] = g[2 * px + p];
-    d4[q][3] = g[3 * px + p];
-    dA[q] = g[4 * px + p];
-    // T at the end of the tile as (tm, ex): T = tm * 2^(-64 ex).
-    const float log_t = o[5 * px + p];
-    ex[q] = max(0, (int)floorf(-log_t * LN2_64_INV));
-    tm[q] = expf(log_t + (float)ex[q] * LN2_64);
-    bsum[q] = 0.0f;
-  }
+  eags::Patch<PPT> P;
+  eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0,
+                              (part % PARTS) * RS + (warp % NWX) * 8,
+                              (part / PARTS) * RS + (warp / NWX) * PATCH_H,
+                              lane);
 
   for (int ci = eff - 1; ci >= 0; --ci) {
     const int base = ci * CHUNK;
@@ -178,93 +108,21 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
     __syncthreads();
     if (tid < jmax) {
       const int col = cols[(int64_t)s * capt + base + tid];
-      float a[10];
-#pragma unroll
-      for (int ch = 0; ch < 10; ++ch) a[ch] = attrs[ch * npad + col];
-#pragma unroll
-      for (int ch = 0; ch < 10; ++ch) s_attr[ch][tid] = a[ch];
-      s_box[tid] = eags::alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+      eags::stage(s_attr, s_box, tid, attrs, npad, col);
       s_col[tid] = col;
     }
     __syncthreads();
 
-    // This warp's survivors: a 128-bit mask from one box test a lane per
-    // 32 survivors, walked back to front. A survivor no lane contributed
-    // to leaves the mask, so the mask says which slots were written.
-    unsigned wm[CHUNK / 32];
-#pragma unroll
-    for (int k = 0; k < CHUNK / 32; ++k) {
-      const int j = k * 32 + lane;
-      wm[k] = __ballot_sync(0xffffffffu,
-                            j < jmax &&
-                                eags::box_meets(s_box[j], bx0, bx1, by0, by1));
-    }
-#pragma unroll
-    for (int k = CHUNK / 32 - 1; k >= 0; --k) {
-      for (unsigned m = wm[k]; m;) {
-        const int bit = 31 - __clz(m);
-        m &= ~(1u << bit);
-        const int j = k * 32 + bit;
-        float r[NG];
-#pragma unroll
-        for (int c = 0; c < NG; ++c) r[c] = 0.0f;
-        int any = 0;
-        const float mu = s_attr[0][j], mv = s_attr[1][j];
-        const float ca = s_attr[2][j], cb = s_attr[3][j];
-        const float cc = s_attr[4][j], op = s_attr[5][j];
-        const float f0 = s_attr[6][j], f1 = s_attr[7][j];
-        const float f2 = s_attr[8][j], f3 = s_attr[9][j];
-#pragma unroll
-        for (int q = 0; q < PPT; ++q) {
-          float du, dv, gg, alpha;
-          if (!eags::twin_alpha(pu, pv[q], mu, mv, ca, cb, cc, op, du, dv,
-                                gg, alpha))
-            continue;
-          const float rr = __frcp_rn(1.0f - alpha);
-          tm[q] *= rr;
-          if (ex[q] > 0 && tm[q] >= 1.0f) {
-            tm[q] *= 0x1p-64f;
-            --ex[q];
-          }
-          const float T = ex[q] > 0 ? 0.0f : tm[q];
-          const float qv = d4[q][0] * f0 + d4[q][1] * f1 + d4[q][2] * f2 +
-                           d4[q][3] * f3 + dA[q];
-          const float d_alpha = T * qv - bsum[q] * rr;
-          const float w = alpha * T;
-          bsum[q] += w * qv;
-          const float dpower = d_alpha * alpha;
-          r[0] += dpower * (ca * du + cb * dv);
-          r[1] += dpower * (cc * dv + cb * du);
-          r[2] += -0.5f * du * du * dpower;
-          r[3] += -du * dv * dpower;
-          r[4] += -0.5f * dv * dv * dpower;
-          r[5] += d_alpha * gg;
-          r[6] += d4[q][0] * w;
-          r[7] += d4[q][1] * w;
-          r[8] += d4[q][2] * w;
-          r[9] += d4[q][3] * w;
-          any = 1;
-        }
-        if (__any_sync(0xffffffffu, any)) {
-          int ch;
-          const float val = reduce10(r, lane, ch);
-          if (ch >= 0) s_warp[warp][ch][j] = val;
-        } else {
-          wm[k] &= ~(1u << bit);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CHUNK / 32; ++k)
-      if (lane == k) s_wmask[warp][k] = wm[k];
+    unsigned wm[MASK_WORDS];
+    eags::walk_chunk(P, s_attr, s_box, jmax, lane, wm,
+                     [&](int j, int ch, float v) { s_warp[warp][ch][j] = v; });
+    eags::store_mask(s_wmask[warp], lane, wm);
     __syncthreads();
     for (int i = tid; i < NG * CHUNK; i += NT) {
       const int c = i / CHUNK;
       const int j = i % CHUNK;
-      float v = 0.0f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w)
-        if ((s_wmask[w][j >> 5] >> (j & 31)) & 1u) v += s_warp[w][c][j];
+      const float v = eags::slot_total<NWARPS>(&s_warp[0][0][0],
+                                               &s_wmask[0][0], c, j);
       if (v != 0.0f) atomicAdd(&grads[c * npad + s_col[j]], v);
     }
   }

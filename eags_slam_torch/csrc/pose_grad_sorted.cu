@@ -23,7 +23,7 @@
 //
 // Design, and how it answers the TPU version:
 //  - One block per selected tile, 256 threads, PX / 256 pixels a thread in
-//    registers (the replay state of replay.cuh, shared with K2).
+//    registers (the replay state of replay.cuh).
 //  - Per survivor, the 6 per-pixel terms are summed with warp shuffles;
 //    lane 0 of each warp writes its warp's sum to its own shared-memory
 //    slot (no shared atomics), and the 8 warp slots are added in a fixed
@@ -33,7 +33,7 @@
 //    and adds its 6 totals times the 42 jacobian values into 7 running
 //    sums; at the end the block reduces the 7 sums with shuffles and a
 //    fixed-order pass over the warps.
-//  - Built with -fmad=false like K1 / K2.
+//  - Built with -fmad=false like K5.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

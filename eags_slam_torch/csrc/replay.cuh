@@ -1,10 +1,9 @@
-// The reverse replay step shared by the backward kernels K2
-// (composite_sorted_bwd.cu), K3 (composite_sorted_bwd_window.cu), K4
-// (pose_grad_sorted.cu) and K6 (composite_entries_bwd.cu).
+// The reverse replay step of the pose-contraction backward K4
+// (pose_grad_sorted.cu); K2, K3 and K6 replay on warp patches instead
+// (warp_patch.cuh).
 //
-// Each kernel walks a tile's survivors (K6: its entries) back to front,
-// each thread holding its pixels' state in registers: the transmittance
-// after the survivor
+// K4 walks a tile's survivors back to front, each thread holding its
+// pixels' state in registers: the transmittance after the survivor
 // (log_after) and the running "behind" sum b of alpha T q over the
 // survivors already replayed. For one (pixel, survivor) pair this step
 // recomputes alpha exactly as the forward K1 did and, when the survivor

@@ -1,0 +1,287 @@
+// The warp-patch replay shared by the backward kernels K2
+// (composite_sorted_bwd.cu), K3 (composite_sorted_bwd_window.cu) and K6
+// (composite_entries_bwd.cu): what each does for a tile's pixels once a
+// chunk of its survivors (K6: entries) is staged in shared memory. Only the
+// way the warps' totals leave the block differs between the three.
+//
+//  - A warp owns a compact 8 x (4 PPT) patch of the tile: lane l holds
+//    column l % 8 and rows l / 8 + 4 q, q < PPT. Its pixel state lives in
+//    registers (Patch): the output cotangents, the running "behind" sum b,
+//    and the transmittance after the survivors already replayed, kept
+//    linear as tm 2^(-64 ex) from the forward's log T (weights below 2^-64
+//    are zero in the kernels and in the twins alike).
+//  - patch_ballot tests the chunk's alpha boxes (alpha_box.cuh) against the
+//    patch, one survivor a lane and one ballot per 32; walk_words walks the
+//    survivors whose box meets the patch back to front, over all of the
+//    chunk's mask words (walk_chunk: K2, K6) or a part of them between two
+//    sums of the slots (K3). Per pair:
+//      T_before = T_after / (1 - alpha),  q = dout_rgbd . feat + dout_alpha,
+//      d_alpha = T q - b / (1 - alpha),   b += alpha T q,
+//    (1 - alpha >= 0.01, so the twin's max(., 1e-6) never binds), with dop
+//    through g = exp(power) where alpha was clipped at 0.99. The alpha
+//    decision is twin_alpha's, rounded as the twin rounds it; the rest is
+//    built with FMA.
+//  - reduce10 sums a survivor's 10 terms over the warp with a transposing
+//    shuffle reduction; walk_words hands each warp total to the kernel's
+//    `emit` and leaves in `wm` the survivors the warp contributed to.
+//  - slot_total adds per-warp slots [warp][channel][survivor] in warp
+//    order, skipping the slots a warp's mask says it did not write: the
+//    same order every run.
+//
+// Not to be included beside replay.cuh (K4's step), which defines the same
+// constants.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "alpha_box.cuh"
+
+namespace eags {
+
+constexpr int CHUNK = 128;
+constexpr int OUT_CH = 8;
+constexpr int NG = 10;
+constexpr int MASK_WORDS = CHUNK / 32;
+constexpr float LN2_64_INV = 0.0225421100138f;   // 1 / (64 ln 2)
+constexpr float LN2_64 = 44.3614195558365f;
+
+// The side of the square region of a tile that one K2 block takes: the
+// whole tile at 16, a quadrant at 32 and 64.
+__host__ __device__ constexpr int region(int tile) {
+  return tile > 16 ? tile / 2 : tile;
+}
+
+// Transposing reduction of v[10] over the 32 lanes of a warp (12 shuffles:
+// 5 + 3 + 2 + 1 + 1, each step halving the values a lane keeps). Returns
+// the warp's total of channel `ch` (set here; -1 when this lane holds none,
+// and only the even lane of each holding pair reports a channel).
+__device__ __forceinline__ float reduce10(const float (&v)[NG], int lane,
+                                          int& ch) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  // xor 16: keep channels 5 * b4 + [0, 5).
+  float a[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const float send = b4 ? v[k] : v[5 + k];
+    const float keep = b4 ? v[5 + k] : v[k];
+    a[k] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+  // xor 8: keep a[0..2] (b3 = 0) or a[3..4] (b3 = 1).
+  float b[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float lo = a[k];
+    const float hi = k < 2 ? a[3 + k] : 0.0f;
+    const float send = b3 ? lo : hi;
+    const float keep = b3 ? hi : lo;
+    b[k] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  // xor 4: keep b[0..1] (b2 = 0) or b[2] (b2 = 1).
+  float c[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float lo = b[k];
+    const float hi = k < 1 ? b[2] : 0.0f;
+    const float send = b2 ? lo : hi;
+    const float keep = b2 ? hi : lo;
+    c[k] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+  // xor 2: keep c[0] (b1 = 0) or c[1] (b1 = 1); xor 1: the lane pair.
+  float d = (b1 ? c[1] : c[0]) +
+            __shfl_xor_sync(0xffffffffu, b1 ? c[0] : c[1], 2);
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  const int local = (b3 ? 3 : 0) + (b2 ? 2 : 0) + (b1 ? 1 : 0);
+  const bool valid = (lane & 1) == 0 && (b3 ? !b2 : local < 3);
+  ch = valid ? (b4 ? 5 : 0) + local : -1;
+  return d;
+}
+
+// One lane's pixels of a warp patch and their replay state.
+template <int PPT>
+struct Patch {
+  float bx0, bx1, by0, by1;   // the patch's pixel-centre bounds
+  float pu;                   // the lane's column
+  float pv[PPT];              // its rows
+  float d4[PPT][4], dA[PPT];  // output cotangents: rgb + depth, alpha
+  float tm[PPT];              // T after the replayed survivors:
+  int ex[PPT];                //   tm * 2^(-64 ex)
+  float bsum[PPT];            // the running "behind" sum b
+};
+
+// The patch whose top-left pixel is (x0, y0) of a TILE x TILE tile with
+// its corner at (tx0, ty0); o, g: the tile's (8, PX) forward output and
+// cotangent.
+template <int TILE, int PPT>
+__device__ __forceinline__ void patch_init(Patch<PPT>& P, const float* o,
+                                           const float* g, float tx0,
+                                           float ty0, int x0, int y0,
+                                           int lane) {
+  constexpr int px = TILE * TILE;
+  P.bx0 = tx0 + (float)x0;
+  P.bx1 = P.bx0 + 7.0f;
+  P.by0 = ty0 + (float)y0;
+  P.by1 = P.by0 + (float)(4 * PPT - 1);
+  P.pu = tx0 + (float)(x0 + (lane & 7));
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) {
+    const int y = y0 + (lane >> 3) + 4 * q;
+    const int p = y * TILE + x0 + (lane & 7);
+    P.pv[q] = ty0 + (float)y;
+    P.d4[q][0] = g[0 * px + p];
+    P.d4[q][1] = g[1 * px + p];
+    P.d4[q][2] = g[2 * px + p];
+    P.d4[q][3] = g[3 * px + p];
+    P.dA[q] = g[4 * px + p];
+    const float log_t = o[5 * px + p];
+    P.ex[q] = max(0, (int)floorf(-log_t * LN2_64_INV));
+    P.tm[q] = expf(log_t + (float)P.ex[q] * LN2_64);
+    P.bsum[q] = 0.0f;
+  }
+}
+
+// Stage entry j of a chunk from attribute column `col`: its 10 attr rows
+// and its alpha box.
+__device__ __forceinline__ void stage(float (*s_attr)[CHUNK], float4* s_box,
+                                      int j, const float* __restrict__ attrs,
+                                      int64_t npad, int64_t col) {
+  float a[10];
+#pragma unroll
+  for (int ch = 0; ch < 10; ++ch) a[ch] = attrs[ch * npad + col];
+#pragma unroll
+  for (int ch = 0; ch < 10; ++ch) s_attr[ch][j] = a[ch];
+  s_box[j] = alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+}
+
+// Replay survivor j of the staged chunk over the lane's pixels: move their
+// state past it and add its 10 gradient terms to r. Returns whether any of
+// the lane's pixels took a contribution from it.
+template <int PPT>
+__device__ __forceinline__ bool patch_step(Patch<PPT>& P,
+                                           const float (*s_attr)[CHUNK],
+                                           int j, float (&r)[NG]) {
+  const float mu = s_attr[0][j], mv = s_attr[1][j];
+  const float ca = s_attr[2][j], cb = s_attr[3][j];
+  const float cc = s_attr[4][j], op = s_attr[5][j];
+  const float f0 = s_attr[6][j], f1 = s_attr[7][j];
+  const float f2 = s_attr[8][j], f3 = s_attr[9][j];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) {
+    float du, dv, gg, alpha;
+    if (!twin_alpha(P.pu, P.pv[q], mu, mv, ca, cb, cc, op, du, dv, gg, alpha))
+      continue;
+    const float rr = __frcp_rn(1.0f - alpha);
+    P.tm[q] *= rr;
+    if (P.ex[q] > 0 && P.tm[q] >= 1.0f) {
+      P.tm[q] *= 0x1p-64f;
+      --P.ex[q];
+    }
+    const float T = P.ex[q] > 0 ? 0.0f : P.tm[q];
+    const float qv = P.d4[q][0] * f0 + P.d4[q][1] * f1 + P.d4[q][2] * f2 +
+                     P.d4[q][3] * f3 + P.dA[q];
+    const float d_alpha = T * qv - P.bsum[q] * rr;
+    const float w = alpha * T;
+    P.bsum[q] += w * qv;
+    const float dpower = d_alpha * alpha;
+    r[0] += dpower * (ca * du + cb * dv);
+    r[1] += dpower * (cc * dv + cb * du);
+    r[2] += -0.5f * du * du * dpower;
+    r[3] += -du * dv * dpower;
+    r[4] += -0.5f * dv * dv * dpower;
+    r[5] += d_alpha * gg;
+    r[6] += P.d4[q][0] * w;
+    r[7] += P.d4[q][1] * w;
+    r[8] += P.d4[q][2] * w;
+    r[9] += P.d4[q][3] * w;
+    any = true;
+  }
+  return any;
+}
+
+// The box ballots of the staged chunk (jmax survivors) for this warp's
+// patch: bit j % 32 of word j / 32 is set when survivor j's box meets it.
+template <int PPT>
+__device__ __forceinline__ void patch_ballot(const Patch<PPT>& P,
+                                             const float4* s_box, int jmax,
+                                             int lane,
+                                             unsigned (&wm)[MASK_WORDS]) {
+#pragma unroll
+  for (int k = 0; k < MASK_WORDS; ++k) {
+    const int j = k * 32 + lane;
+    wm[k] = __ballot_sync(0xffffffffu,
+                          j < jmax && box_meets(s_box[j], P.bx0, P.bx1,
+                                                P.by0, P.by1));
+  }
+}
+
+// Walk the survivors of mask words hi down to lo back to front. Each warp
+// total goes to emit(j, channel, value) on the lane that holds it. A
+// survivor no lane contributed to leaves wm, so wm says which survivors
+// the warp emitted.
+template <int PPT, class Emit>
+__device__ __forceinline__ void walk_words(Patch<PPT>& P,
+                                           const float (*s_attr)[CHUNK],
+                                           int lane,
+                                           unsigned (&wm)[MASK_WORDS],
+                                           int hi, int lo, Emit&& emit) {
+#pragma unroll
+  for (int k = MASK_WORDS - 1; k >= 0; --k) {
+    if (k > hi || k < lo) continue;
+    for (unsigned m = wm[k]; m;) {
+      const int bit = 31 - __clz(m);
+      m &= ~(1u << bit);
+      const int j = k * 32 + bit;
+      float r[NG];
+#pragma unroll
+      for (int c = 0; c < NG; ++c) r[c] = 0.0f;
+      const bool any = patch_step(P, s_attr, j, r);
+      if (__any_sync(0xffffffffu, any)) {
+        int ch;
+        const float val = reduce10(r, lane, ch);
+        if (ch >= 0) emit(j, ch, val);
+      } else {
+        wm[k] &= ~(1u << bit);
+      }
+    }
+  }
+}
+
+// Walk the whole staged chunk for this warp's patch: ballots, then every
+// mask word back to front.
+template <int PPT, class Emit>
+__device__ __forceinline__ void walk_chunk(Patch<PPT>& P,
+                                           const float (*s_attr)[CHUNK],
+                                           const float4* s_box, int jmax,
+                                           int lane,
+                                           unsigned (&wm)[MASK_WORDS],
+                                           Emit&& emit) {
+  patch_ballot(P, s_box, jmax, lane, wm);
+  walk_words(P, s_attr, lane, wm, MASK_WORDS - 1, 0, emit);
+}
+
+// Lanes 0-3 store the warp's mask words.
+__device__ __forceinline__ void store_mask(unsigned* s_wmask_warp, int lane,
+                                           const unsigned (&wm)[MASK_WORDS]) {
+#pragma unroll
+  for (int k = 0; k < MASK_WORDS; ++k)
+    if (lane == k) s_wmask_warp[k] = wm[k];
+}
+
+// The fixed-order total of channel c of survivor j over the NW warps'
+// slots s_warp[w][c][j % SLOTS] that their masks s_wmask[w][.] mark as
+// written (SLOTS survivors a slot row: the chunk, or the part of it walked
+// since the slots were last summed).
+template <int NW, int SLOTS = CHUNK>
+__device__ __forceinline__ float slot_total(const float* s_warp,
+                                            const unsigned* s_wmask, int c,
+                                            int j) {
+  float v = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+    if ((s_wmask[w * MASK_WORDS + (j >> 5)] >> (j & 31)) & 1u)
+      v += s_warp[(w * NG + c) * SLOTS + j % SLOTS];
+  return v;
+}
+
+}  // namespace eags

@@ -23,7 +23,8 @@ Semantics (identical in kernel and twin):
     (16, Epad) that are zero in every column K5 did not composite
     (early-stopped chunks, alignment gaps, the padded tail). Every entry
     column belongs to one tile, so K6 writes each column once: no atomics,
-    the same result from run to run.
+    the same result from run to run. K6 skips the pairs outside each
+    entry's alpha box (`composite_sorted.alpha_box`), where alpha is zero.
 
 The twins are the sorted backend's chunk loop and replay
 (`composite_sorted._composite_cols`, `_replay_grads`) on each tile's

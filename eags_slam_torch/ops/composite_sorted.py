@@ -32,13 +32,15 @@ Semantics (identical in kernel and twin):
   - The backward mirrors `_replay_chunks` term by term, including dop =
     sum(d_alpha * g) with g = exp(min(power, 0)) where alpha was clipped at
     0.99, and the max(1 - alpha, 1e-6) guard. Grads land in (16, Npad).
-  - K1 and K2 skip the (pixel, survivor) pairs outside each survivor's
-    conservative alpha box (`alpha_box`), where alpha is zero: the skip
-    changes no sum.
+  - K1, K2 and K3 skip the (pixel, survivor) pairs outside each
+    survivor's conservative alpha box (`alpha_box`), where alpha is zero:
+    the skip changes no sum.
   - K3 computes K2's grads with another accumulation (`rmw_window`): a
-    block takes `group` consecutive entries of tile_ids and keeps, per
-    band, a window of the band's seg_cap lanes in shared memory, adding
-    each lane to the global array once, when the window moves past it.
+    thread-block cluster takes a run of consecutive entries of tile_ids
+    (at most `group`; `window_run` takes one)
+    and keeps, per band, a window of the band's seg_cap lanes in the
+    cluster's shared memory, adding each lane to the global array once,
+    when the window moves past it.
     The sums are K2's, so K2's twin is K3's plain version.
   - K4 replays as K2 does but keeps only the 6 pose-dependent rows
     (`GROWS`: u, v, conic a/b/c, depth) and contracts each survivor's
@@ -84,6 +86,7 @@ fwd_launches = 0
 bwd_launches = 0
 window_launches = 0
 pose_launches = 0
+last_window_run = 0          # the run K3's last launch took
 fwd_twin_calls = 0
 bwd_twin_calls = 0
 window_twin_calls = 0
@@ -185,9 +188,10 @@ def _chunk_alpha(e, pu, pv, n_valid):
     return alpha, g, du, dv
 
 
-# The alpha box of csrc/alpha_box.cuh (K1 and K2 skip a warp's patch that
-# misses it). Widening: the float32 quadratic form may undershoot the exact
-# one by ~12 eps kappa of itself, kappa = (a + c)^2 / det.
+# The alpha box of csrc/alpha_box.cuh (K1, K2, K3 and K6 skip a warp's
+# patch that misses it). Widening: the float32 quadratic form may
+# undershoot the exact one by ~12 eps kappa of itself, kappa = (a + c)^2 /
+# det.
 BOX_KAPPA_EPS = 64.0 * 2.0 ** -23
 BOX_T_PAD = 1e-4
 BOX_REL = 1.0001
@@ -364,15 +368,14 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("composite_sorted_fwd.cu", "composite_sorted_bwd.cu",
            "composite_sorted_bwd_window.cu", "pose_grad_sorted.cu",
            "composite_entries_fwd.cu", "composite_entries_bwd.cu")
-HEADERS = ("replay.cuh", "alpha_box.cuh")
+HEADERS = ("replay.cuh", "alpha_box.cuh", "warp_patch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eags_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
-# K1 and K2 round their alpha decisions as the twin does with explicit
-# intrinsics (alpha_box.cuh) and use FMA elsewhere; K3-K6 keep the
-# whole-file -fmad=false they were checked with.
-NO_FMAD = ("composite_sorted_bwd_window.cu", "pose_grad_sorted.cu",
-           "composite_entries_fwd.cu", "composite_entries_bwd.cu")
+# K1, K2, K3 and K6 round their alpha decisions as the twin does with
+# explicit intrinsics (alpha_box.cuh) and use FMA elsewhere; K4 and K5 keep
+# the whole-file -fmad=false they were checked with.
+NO_FMAD = ("pose_grad_sorted.cu", "composite_entries_fwd.cu")
 
 
 def _flags(name: str) -> list:
@@ -381,6 +384,7 @@ def _flags(name: str) -> list:
 
 _LIB = None
 build_seconds = None
+build_log = ""        # nvcc's output of the last build (-Xptxas -v lines)
 
 
 def _nvcc() -> str:
@@ -391,11 +395,13 @@ def _nvcc() -> str:
     return path
 
 
-def _run_all(cmds, what: str, verbose: bool):
-    """Start every command at once, wait for all; raise if one failed."""
+def _run_all(cmds, what: str, verbose: bool) -> str:
+    """Start every command at once, wait for all; raise if one failed.
+    Returns what they printed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
+    log = ""
     for p in procs:
         out, err = p.communicate()
         if p.returncode != 0:
@@ -403,12 +409,15 @@ def _run_all(cmds, what: str, verbose: bool):
                                f"{err}")
         if verbose:
             print(out + err, flush=True)
+        log += out + err
+    return log
 
 
 def build_kernels(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into one shared library (cached by source hash):
-    one nvcc per source, all started together, then one link."""
-    global build_seconds
+    one nvcc per source, all started together, then one link. `verbose`
+    adds -Xptxas -v and prints nvcc's output (kept in `build_log`)."""
+    global build_seconds, build_log
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
@@ -424,9 +433,9 @@ def build_kernels(verbose: bool = False) -> Path:
     ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (Path(n).stem + ".o") for n in SOURCES]
-        _run_all([[nvcc, *_flags(n), *ptxas, "-c", "-o", str(o),
-                   str(CSRC / n)] for n, o in zip(SOURCES, objs)],
-                 "nvcc", verbose)
+        build_log = _run_all([[nvcc, *_flags(n), *ptxas, "-c", "-o", str(o),
+                               str(CSRC / n)] for n, o in zip(SOURCES, objs)],
+                             "nvcc", verbose)
         tmp_lib = Path(tmp) / lib.name
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
                    *map(str, objs)]], "nvcc link", verbose)
@@ -548,14 +557,22 @@ def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
     return grads
 
 
+def window_run() -> int:
+    """The tiles one K3 cluster replays: 1. The kernel takes any run up to
+    `group`, but on the 836-tile grid runs of 2 and 6 measured slower than
+    runs of 1 for every K3 design tried (PERF.md)."""
+    return 1
+
+
 def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
                                 tile: int, tiles_x: int, bands: int,
                                 seg_cap: int, group: int):
     """K3 on CUDA tensors; on CPU tensors K2's twin, which is K3's plain
     version (the same sums). `seg_start` (T, bands) gives each tile's band
-    windows; a block takes `group` consecutive entries of tile_ids. Returns
-    grads (16, Npad) f32 (lanes leave a block through global atomicAdd:
-    the last bits vary from run to run)."""
+    windows; a cluster takes `window_run` consecutive entries of tile_ids
+    (at most `group`), and `last_window_run` records the run it launched.
+    Returns grads (16, Npad) f32 (lanes leave a cluster through global
+    atomicAdd: the last bits vary from run to run)."""
     if attrs.device.type == "cpu":
         global window_twin_calls
         window_twin_calls += 1
@@ -581,9 +598,11 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
     s = tile_ids.shape[0]
     if s == 0:
         return grads
+    global last_window_run
+    run = last_window_run = min(group, window_run())
     err = lib.eags_composite_sorted_bwd_window(
         attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(), bands,
-        seg_cap, tile_ids.data_ptr(), s, group, tile, tiles_x, cols.shape[1],
+        seg_cap, tile_ids.data_ptr(), s, run, tile, tiles_x, cols.shape[1],
         out.data_ptr(), cols.data_ptr(), dout.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K3 launch")

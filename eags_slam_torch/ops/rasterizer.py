@@ -35,7 +35,7 @@ is plain indexing, whose backward is a scatter-add.
 selectors of the unported branches, for which `check_config` raises. The
 dense-only fields (`tile_capacity`, `chunk`: the v1 kernels use 128) and
 `alpha_max` (the kernels clip alpha at the fixed `ALPHA_MAX`) are left out.
-`group` is the run length of K3's blocks.
+`group` bounds the run of tiles a K3 cluster replays (`window_run`).
 """
 from __future__ import annotations
 

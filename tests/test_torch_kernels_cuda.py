@@ -7,7 +7,10 @@ over blocks): their cases add the 1/8 tile subset with shuffled and
 repeated ids, tiles 16 / 32 / 64, and a cull hazard scene (radius-capped
 survivors, opacity at and just above 1/255 and near 1, near-singular and
 elongated conics, means on and just off patch borders), each with K3 and
-K4 held against K2's twin on the new K1's columns.
+K4 held against K2's twin on the new K1's columns. K3 also runs at runs of
+1, 4 and 8 tiles a cluster on every window and cull case, ids ascending
+and shuffled, and K6 on the cull hazard scene binned as entries and on a
+grid with more tiles than SMs.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -337,14 +340,14 @@ def test_entry_kernels_on_frozen_binning(cuda_device):
 CAM2 = Camera(fx=180.0, fy=180.0, cx=127.5, cy=95.5, width=256, height=192)
 
 
-def _hazard_inputs(tile, seg_cap, n, device, seed=0):
+def _hazard_proj(tile, seg_cap, n, device, seed=0):
     """The cull's hazards, built as projected gaussians: a third large
     enough that `_v2_radius_cap` clips their radius; opacity uniform, at
     1/255 and just above it, or within 1e-6-1e-2 of 1; axis ratios up to
     1e3 at random angles, some conics within float32 of singular; means on
     patch borders (multiples of 4 and 8), half a pixel off them, or 1e-3 px
     outside them; and a stack of near-opaque gaussians that drives T far
-    below 2^-64, where the kernels rescale it."""
+    below 2^-64, where the kernels rescale it. Returns (proj, colours)."""
     rng = np.random.default_rng(seed)
     cfg = RasterConfig(tile=tile, dup_side=3, seg_cap=seg_cap, bands=3)
     cap = _v2_radius_cap(cfg)
@@ -383,9 +386,15 @@ def _hazard_inputs(tile, seg_cap, n, device, seed=0):
     proj = _Projected(mean2d=f32(np.stack([mu, mv], 1)), conic=f32(conic),
                       depth=f32(rng.uniform(1.0, 3.0, n)), radius=f32(radius),
                       opacity=f32(op))
-    attrs, ss, sc = _sorted_attrs(proj, f32(rng.uniform(0, 1, (n, 3))), CAM2,
-                                  cfg)
     assert bool((radius == cap).any()) and bool((op == lo).any())
+    return proj, f32(rng.uniform(0, 1, (n, 3)))
+
+
+def _hazard_inputs(tile, seg_cap, n, device, seed=0):
+    """The hazard scene of `_hazard_proj` in the sorted layout."""
+    proj, colors = _hazard_proj(tile, seg_cap, n, device, seed)
+    cfg = RasterConfig(tile=tile, dup_side=3, seg_cap=seg_cap, bands=3)
+    attrs, ss, sc = _sorted_attrs(proj, colors, CAM2, cfg)
     tiles_x = -(-CAM2.width // tile)
     return attrs.contiguous(), ss, sc, tiles_x, tiles_x * -(
         -CAM2.height // tile)
@@ -486,3 +495,76 @@ def test_culling_kernels_match_twins(case, cuda_device):
                                     tile, tx)
     torch.cuda.synchronize()
     assert float((d_k - d_t).abs().max()) <= 1e-3 * float(d_t.abs().max())
+
+
+def _case_inputs(case, device):
+    """(tile, seg_cap, inputs) of a WINDOW_CASES or K12_CASES entry."""
+    if case in WINDOW_CASES:
+        tile, seg_cap, n, _, _ = WINDOW_CASES[case]
+        return tile, seg_cap, _inputs(tile, seg_cap, n, device)
+    kind, tile, seg_cap, n, _ = K12_CASES[case]
+    if kind == "hazard":
+        return tile, seg_cap, _hazard_inputs(tile, seg_cap, n, device)
+    return tile, seg_cap, _scene_inputs(tile, seg_cap, n, device,
+                                        cam=CAM3 if kind == "wide" else CAM2)
+
+
+@pytest.mark.parametrize("order", ["ascending", "shuffled"])
+@pytest.mark.parametrize("case", list(WINDOW_CASES) + list(K12_CASES))
+def test_window_kernel_at_run_lengths(case, order, cuda_device,
+                                      monkeypatch):
+    """K3 against K2's twin with runs of 1, 4 and 8 tiles a block (set
+    through `window_run`), on the window hazard scenes and the cull cases:
+    every grid but the 300-tile one has fewer tiles than an H100 has SMs;
+    ids ascending, or shuffled with two of them repeated (the tracker's
+    score order, every tile a backward jump)."""
+    tile, seg_cap, (attrs, ss, sc, tx, num_tiles) = _case_inputs(
+        case, cuda_device)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    if order == "shuffled":
+        p = torch.randperm(num_tiles, generator=gen, device=cuda_device)
+        ids = torch.cat([p, p[:2]])[torch.randperm(
+            num_tiles + 2, generator=gen, device=cuda_device)].to(torch.int32)
+    out, cols = cs.composite_sorted_fwd(attrs, ss, sc, ids, tile, tx, 3,
+                                        seg_cap)
+    dout = torch.randn(out.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    g_t = cs.composite_sorted_bwd_plain(attrs, ids, out, cols, dout, tile,
+                                        tx)
+    assert float(g_t[:10].abs().max()) > 0
+    for run in (1, 4, 8):
+        monkeypatch.setattr(cs, "window_run", lambda *_, r=run: r)
+        cs.reset_counts()
+        g3 = cs.composite_sorted_bwd_window(attrs, ss, ids, out, cols, dout,
+                                            tile, tx, 3, seg_cap, 8)
+        torch.cuda.synchronize()
+        assert cs.counts()["window_launches"] == 1
+        assert cs.last_window_run == run
+        _grads_close(g3, g_t)
+
+
+@pytest.mark.parametrize("kind,tile", [("hazard", 16), ("hazard", 32),
+                                       ("hazard", 64), ("wide", 32)])
+def test_entry_kernels_on_hazard_layouts(kind, tile, cuda_device):
+    """K5 / K6 on the cull hazard scene binned as entries (tiles 16 / 32 /
+    64), and on a 300-tile grid (more tiles than SMs: K6's 512-thread
+    blocks): K6 against its twin, twice bit for bit, zero in every column K5
+    did not composite."""
+    cfg = RasterConfig(tile=tile, dup_side=3, max_per_tile=8192,
+                       backend="pallas")
+    if kind == "hazard":
+        cam = CAM2
+        proj, colors = _hazard_proj(tile, 1024, 5000, cuda_device)
+    else:
+        cam = CAM3
+        t = _scene(30000, cuda_device, 4)
+        colors = t["col"]
+        proj = project_gaussians(t["means"], t["q"], t["ls"], t["op"],
+                                 torch.eye(4, device=cuda_device), cam, cfg)
+    slot, pstart, count = R._build_slots(proj, cam, cfg)
+    entries = R._gather_entries(R._with_sentinel(R._stack_attrs(
+        proj, colors)), slot).contiguous()
+    tx = -(-cam.width // tile)
+    assert pstart.shape[0] == tx * -(-cam.height // tile)
+    _check_entries(entries, pstart, count, tile, tx, cuda_device)
