@@ -7,25 +7,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device   - CUDA must be present; card name and power limit
                 (nvidia-smi); TF32 off for matmuls and convolutions.
   2. build    - K1-K6 from eags_slam_torch/csrc: one nvcc per source, in
-                parallel, then one link. K1, K2, K3 and K6 are built with
-                FMA (their alpha decisions round as the twin's through _rn
-                intrinsics), K4 and K5 with -fmad=false. With --ptxas, also
-                K3's and K6's registers, spills and shared bytes.
+                parallel, then one link, all with FMA (every kernel rounds
+                its alpha decisions as the twin does through _rn
+                intrinsics). With --ptxas, also the registers, spills and
+                shared bytes of K3, K4, K5 and K6.
   3. kernels  - at the main-path shape (1200x680, tile 32) on the synthetic
                 room (>= 100k gaussians): K1 and K2 against their plain
                 PyTorch twins (bands 3, seg_cap 1024), full frame and a
                 shuffled 1/8 tile subset (both timed on both); K3 against
                 K2's twin and K2 on the same residuals, timed on both shapes
-                with the run length its wrapper takes; K4 against its twin
-                and against the K2 + autograd chain on the frozen-sorted
-                tracking layout (1/8 subset and full grid); K5 and K6
-                against their twins on the entry layout (dup_side 3,
+                with the run length its wrapper takes; K4 against its twin,
+                twice bit for bit, and against the K2 + autograd chain on
+                the frozen-sorted tracking layout (the 1/8 subset, the 1/4
+                polish set and the full grid, timed on all three); K5 and
+                K6 against their twins on the entry layout (dup_side 3,
                 entry_cap_factor 4, max_per_tile 8192), full frame and the
                 frozen binning at a shifted tracking pose, K6 twice bit for
-                bit and timed on both; max errors against the stated
+                bit, both timed on both; max errors against the stated
                 tolerances; median kernel, twin and backward times; each
-                kernel's bound (K2 / K3 also on the subset, K6 also on the
-                frozen binning).
+                kernel's bound on every timed shape.
   4. slice    - the port's GaussianSLAM, 12 frames of the bench protocol on
                 the synthetic room with const-speed tracking, the default
                 sorted configuration; K1/K2 launch counts on that run
@@ -47,8 +47,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 plain mapping loop all through K5 / K6 (no K1-K4 launch, no
                 twin); the same metrics, and the slice's ATE / PSNR beside
                 them.
-Then the kernel summary line and the result line. The card line (from the
-device phase) comes first.
+  8. slice_k4 - the slice's 12 frames with `tracking.pose_grad_kernel`
+                on (off by default, as in the reference): every tracking
+                backward through K4, mapping on K2; the same gates, and the
+                default slice's FPS / track / map ms beside them.
+Then the kernel summary line (K5 / K6 launches also by layout: render
+binning, frozen tracking binning) and the result line. The card line (from
+the device phase) comes first.
 
 There is no CPU path: without CUDA the script exits 1 before any result.
 """
@@ -77,8 +82,9 @@ def emit(obj):
 #    the running-sum order above (K2 recovers T by reciprocals from K1's
 #    log T): per grad row, max abs err <= 1e-3 x the row's max |grad|.
 #  - K4 dpose (7,): the same replay as K2, summed per survivor and then
-#    over the tile in a fixed order; the twin sums K2's grads over all
-#    gaussians in another order: max abs err <= 1e-3 x max |dpose|.
+#    over each block in a fixed order; the twin sums K2's grads over all
+#    gaussians in another order: max abs err <= 1e-3 x max |dpose|. No
+#    atomics: two runs are equal bit for bit.
 #  - K4 path vs the K2 + autograd chain (the same loss): the same chain-rule
 #    sum in another association order, plus K2's atomics: max abs err
 #    <= 1e-3 x max |dpose| (the JAX golden test holds 2e-4 on the CPU).
@@ -247,14 +253,15 @@ def phase_build(verbose: bool):
         emit({"phase": "ptxas", **_ptxas_summary(cs.build_log)})
 
 
-# The mangled-name parts of K3's and K6's kernels in nvcc's output.
-PTXAS_KERNELS = {"K3": "bwd_window_kernel", "K6": "entries_bwd_kernel"}
+# The mangled-name parts of K3-K6's kernels in nvcc's output.
+PTXAS_KERNELS = {"K3": "bwd_window_kernel", "K4": "pose_kernel",
+                 "K5": "entries_fwd_kernel", "K6": "entries_bwd_kernel"}
 
 
 def _ptxas_summary(log: str) -> dict:
     """Registers, spill bytes and static shared bytes of each instance of
-    K3's and K6's kernels, from nvcc -Xptxas -v (empty when the library
-    came from the build cache). Their dynamic shared memory is sized at
+    K3-K6's kernels, from nvcc -Xptxas -v (empty when the library came
+    from the build cache). K3's and K6's dynamic shared memory is sized at
     launch: K6's warp slots, 5120 bytes a warp; K3's quarter-chunk warp
     slots, 1280 bytes a warp, and a CTA's share of the band rings, 40 bytes
     a column (bands x seg_cap) over the cluster's CTAs."""
@@ -588,8 +595,10 @@ def phase_kernels(per_wall: int, reps: int):
             }
         results[label] = res
         all_ok &= ok_f and ok_b and ok_w and ok_wk
-    ok4, rep4, summary["K4"] = _check_k4(cfg, cam, gmap, subset, T, reps,
-                                         gen)
+    polish = torch.randperm(T, generator=gen, device="cuda")[
+        : round(0.25 * T)].to(torch.int32)
+    ok4, rep4, summary["K4"] = _check_k4(cfg, cam, gmap, subset, polish, T,
+                                         reps, gen)
     ok56, rep56, k56 = _check_entries(cam, gmap, reps, gen)
     summary.update(k56)
     all_ok &= ok4 and ok56
@@ -614,13 +623,15 @@ def _track_loss(out):
             + (out.color * out.color).sum())
 
 
-def _check_k4(cfg, cam, gmap, subset, T, reps, gen):
+def _check_k4(cfg, cam, gmap, subset, polish, T, reps, gen):
     """K4 at the tracking shape: the frozen-sorted layout of the kernels
-    map, a relative pose near identity, the 1/8 tile subset (the refine)
-    and the full grid. K4 against its twin on K1's residuals, then the whole
-    K4 path (K1 + jacobian + K4) against the K2 + autograd chain on the
-    same loss; times of K4, the jacobian, the twin, and of both paths'
-    backward."""
+    map, a relative pose near identity, the 1/8 tile subset (the refine),
+    the 1/4 polish set and the full grid. K4 against its twin on K1's
+    residuals and twice bit for bit, then the whole K4 path (K1 + jacobian
+    + K4) against the K2 + autograd chain on the same loss; times of K4
+    (with its bound), the jacobian, the twin, and of both paths'
+    backward. The summary is the subset's, with the polish set's and the
+    full grid's times and bounds beside it."""
     import torch
 
     from eags_slam_torch.ops import composite_sorted as cs
@@ -633,7 +644,8 @@ def _check_k4(cfg, cam, gmap, subset, T, reps, gen):
                       device="cuda")
     tiles_x = -(-cam.width // cfg.tile)
     rep, ok, summary = {}, True, {}
-    for label, tile_ids in (("subset", subset),
+    extra = {}
+    for label, tile_ids in (("subset", subset), ("polish", polish),
                             ("full", torch.arange(T, dtype=torch.int32,
                                                   device="cuda"))):
         with torch.no_grad():
@@ -647,9 +659,12 @@ def _check_k4(cfg, cam, gmap, subset, T, reps, gen):
         dout[:, 5:] = 0.0
         g_k = cs.pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout,
                                   cfg.tile, tiles_x)
+        g_k2 = cs.pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout,
+                                   cfg.tile, tiles_x)
         g_t = cs.pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols,
                                         dout, cfg.tile, tiles_x)
         torch.cuda.synchronize()
+        det = bool(torch.equal(g_k, g_k2))
         err = float((g_k - g_t).abs().max())
         rel = err / max(float(g_t.abs().max()), 1e-12)
 
@@ -664,7 +679,8 @@ def _check_k4(cfg, cam, gmap, subset, T, reps, gen):
         chain_err = float((d4 - d2).abs().max())
         chain_rel = chain_err / max(float(d2.abs().max()), 1e-12)
         r = {"tiles": int(tile_ids.shape[0]), "max_abs_err": err,
-             "rel_to_max": rel, "dpose": g_k.tolist(),
+             "rel_to_max": rel, "k4_deterministic": det,
+             "dpose": g_k.tolist(),
              "chain_max_abs_err": chain_err, "chain_rel_to_max": chain_rel,
              "loss_k4_path": float(loss4.detach()),
              "loss_k2_chain": float(loss2.detach()),
@@ -681,16 +697,19 @@ def _check_k4(cfg, cam, gmap, subset, T, reps, gen):
         r["backward_k2_chain_ms"] = _median_ms(lambda: torch.autograd.grad(
             loss2, qt, retain_graph=True), reps)
         ok &= rel <= TOL["dpose_rel_to_max"] and \
-            chain_rel <= TOL["chain_rel_to_max"] and \
+            chain_rel <= TOL["chain_rel_to_max"] and det and \
             bool(torch.isfinite(g_k).all())
+        work = _work(attrs, tile_ids, out, cols, cfg.tile, tiles_x)
+        bound = _bound(_k4_bytes(tile_ids, out, cols), _ops("K4", work))
+        r["k4_bound_ms"] = bound["bound_ms"]
         if label == "subset":
-            work = _work(attrs, tile_ids, out, cols, cfg.tile, tiles_x)
             summary = {"max_abs_err": err, "ms": r["k4_ms"],
-                       "plain_ms": r["k4_plain_ms"],
-                       **_bound(_k4_bytes(tile_ids, out, cols),
-                                _ops("K4", work))}
+                       "plain_ms": r["k4_plain_ms"], **bound}
+        else:
+            extra[label] = {"ms": r["k4_ms"], "bound_ms": bound["bound_ms"],
+                            "max_abs_err": err, "tiles": r["tiles"]}
         rep[label] = r
-    return ok, rep, summary
+    return ok, rep, {**summary, **extra}
 
 
 def _entries_bytes(start, count, out, grads=None) -> int:
@@ -746,8 +765,8 @@ def _check_entries(cam, gmap, reps, gen):
     the render layout at the map's pose and the frozen binning reprojected
     at the K4 check's shifted tracking pose. Each against its twin; K6 twice
     bit for bit and zero in the columns K5 did not composite; times and
-    bounds from the full-frame render layout, K6's also from the frozen
-    binning."""
+    bounds on both layouts (the summary is the render layout's, the frozen
+    binning's beside it)."""
     import torch
 
     from eags_slam_torch.ops import composite_entries as ce
@@ -806,15 +825,21 @@ def _check_entries(cam, gmap, reps, gen):
         r["k6_ms"] = _median_ms(lambda: ce.composite_entries_bwd(
             ent, ps, cnt, out_k, dout, cfg.tile, tiles_x), reps)
         r["k6_bound_ms"] = k6_bound["bound_ms"]
+        r["k5_ms"] = _median_ms(lambda: ce.composite_entries_fwd(
+            ent, ps, cnt, cfg.tile, tiles_x), reps)
+        k5_bound = _bound(_entries_bytes(ps, cnt, out_k), _ops("K5", work))
+        r["k5_bound_ms"] = k5_bound["bound_ms"]
         if label == "frozen":
-            # The tracking layout's K6 beside the render layout's.
+            # The tracking layout's K5 and K6 beside the render layout's.
+            summary["K5"]["frozen"] = {
+                "ms": r["k5_ms"], "bound_ms": k5_bound["bound_ms"],
+                "max_abs_err": max(rep_f[c]["max_abs"] for c in
+                                   ("r", "g", "b", "depth", "alpha"))}
             summary["K6"]["frozen"] = {
                 "ms": r["k6_ms"], "bound_ms": k6_bound["bound_ms"],
                 "max_abs_err": max(rep_b[c]["max_abs"] for c in rep_b
                                    if isinstance(rep_b[c], dict))}
         if label == "render":
-            r["k5_ms"] = _median_ms(lambda: ce.composite_entries_fwd(
-                ent, ps, cnt, cfg.tile, tiles_x), reps)
             r["k5_plain_ms"] = _median_ms(
                 lambda: ce.composite_entries_fwd_plain(
                     ent, ps, cnt, cfg.tile, tiles_x), max(3, reps // 4))
@@ -828,8 +853,7 @@ def _check_entries(cam, gmap, reps, gen):
                 "K5": {"max_abs_err": max(rep_f[c]["max_abs"] for c in
                                           ("r", "g", "b", "depth", "alpha")),
                        "ms": r["k5_ms"], "plain_ms": r["k5_plain_ms"],
-                       **_bound(_entries_bytes(ps, cnt, out_k),
-                                _ops("K5", work))},
+                       **k5_bound},
                 "K6": {"max_abs_err": max(rep_b[c]["max_abs"] for c in
                                           rep_b if isinstance(rep_b[c], dict)),
                        "ms": r["k6_ms"], "plain_ms": r["k6_plain_ms"],
@@ -866,13 +890,15 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
         report = gslam.run()
         torch.cuda.synchronize()
         launches = {**cs.counts(), **ce.counts()}
+        by_layout = ce.layout_counts()
         peak = torch.cuda.max_memory_allocated()
         results = Evaluator(out_dir, gslam.dataset, config).run()
         traj, rend = results["trajectory"], results["rendering"]
     finally:
         gslam.cleanup()
     line = {"phase": phase, "frames": report["frames"],
-            "launches": launches, "ate_cm": 100.0 * traj["ate"]["rmse"],
+            "launches": launches, "launches_by_layout": by_layout,
+            "ate_cm": 100.0 * traj["ate"]["rmse"],
             "ate_aligned_cm": 100.0 * traj["ate_aligned"]["rmse"],
             "rpe_cm": 100.0 * traj["rpe"]["rpe_trans_rmse"],
             "psnr_db": rend["mean_psnr"], "ssim": rend["mean_ssim"],
@@ -890,24 +916,29 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
 
 
 def phase_slice(per_wall: int, n_frames: int, out_dir: str,
-                window: bool = False, slice_line=None):
+                window: bool = False, slice_line=None,
+                pose_kernel: bool = False):
     """The slice, on the default sorted configuration (K1 + K2) or, as the
     `window` phase, with `mapping.rmw_window` on, which routes every
     backward of the sorted path (tracking without K4, and mapping) through
-    K3; the window line prints the default slice's numbers beside its own.
-    Gate: K1 and the backward's kernel launched (no K2 launch in the window
-    phase), no twin; every frame ran; ATE < 5 cm and PSNR > 20 dB."""
-    phase = "window" if window else "slice"
+    K3, or, as the `slice_k4` phase, with `tracking.pose_grad_kernel` on,
+    which takes every tracking backward to K4; those lines print the
+    default slice's numbers beside their own. Gate: K1 and the backward's
+    kernels launched (no K2 launch in the window phase), no twin; every
+    frame ran; ATE < 5 cm and PSNR > 20 dB."""
+    phase = "window" if window else "slice_k4" if pose_kernel else "slice"
     config = bench_config(out_dir, n_frames, per_wall)
     config["mapping"]["rmw_window"] = window
+    config["tracking"]["pose_grad_kernel"] = pose_kernel
     ok, line, _, gslam = _run_slam(config, n_frames, out_dir, phase)
     la = line["launches"]
     ok &= (gslam.rcfg.rmw_window == window and la["fwd_launches"] > 0
            and (la["window_launches"] > 0 and la["bwd_launches"] == 0
                 if window else la["bwd_launches"] > 0)
+           and (la["pose_launches"] > 0) == pose_kernel
            and line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0)
     extra = {}
-    if window:
+    if window or pose_kernel:
         extra["default_slice"] = None if slice_line is None else {
             k: slice_line[k] for k in ("fps", "track_ms", "map_ms", "ate_cm",
                                        "psnr_db")}
@@ -973,7 +1004,8 @@ def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
-                   default="device,build,kernels,slice,window,c2f,entries")
+                   default="device,build,kernels,slice,window,c2f,entries,"
+                   "slice_k4")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -982,6 +1014,8 @@ def main():
 
     phase_device()
     import torch
+
+    from eags_slam_torch.ops import composite_entries as ce
 
     phase_build(args.ptxas)
     summary = phase_kernels(PER_WALL, REPS) if "kernels" in phases else {}
@@ -1000,19 +1034,29 @@ def main():
     if "entries" in phases:
         runs.append(phase_entries(PER_WALL, N_FRAMES, args.out + "_entries",
                                   slice_line))
+    if "slice_k4" in phases:
+        runs.append(phase_slice(PER_WALL, N_FRAMES, args.out + "_slice_k4",
+                                slice_line=slice_line, pose_kernel=True))
     kernels = []
     for kid, lkey in LAUNCH_KEYS.items():
         s = summary.get(kid, {})
-        kernels.append({"name": kid, "route": "cuda", "source": SOURCES[kid],
-                        "replaces": REPLACES[kid],
-                        "launches": sum(r["launches"][lkey] for r in runs)
-                        if runs else None,
-                        "max_abs_err": s.get("max_abs_err"),
-                        "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
-                        "bound_ms": s.get("bound_ms"),
-                        "bound_by": s.get("bound_by"), "library_ms": None,
-                        **{k: s[k] for k in ("run", "subset", "frozen")
-                           if k in s}})
+        k = {"name": kid, "route": "cuda", "source": SOURCES[kid],
+             "replaces": REPLACES[kid],
+             "launches": sum(r["launches"][lkey] for r in runs)
+             if runs else None,
+             "max_abs_err": s.get("max_abs_err"),
+             "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
+             "bound_ms": s.get("bound_ms"),
+             "bound_by": s.get("bound_by"), "library_ms": None,
+             **{f: s[f] for f in ("run", "subset", "polish", "full",
+                                  "frozen") if f in s}}
+        if kid in ("K5", "K6") and runs:
+            # K5 / K6 run on two layouts: the render binning and the
+            # tracker's frozen binning.
+            k["launches_by_layout"] = {
+                lay: sum(r["launches_by_layout"][kid][lay] for r in runs)
+                for lay in ce.LAYOUTS}
+        kernels.append(k)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

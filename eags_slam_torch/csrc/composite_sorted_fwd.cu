@@ -32,6 +32,8 @@
 //    *= 1 - alpha, rescaled by 2^64 when it falls below 2^-64, where the
 //    weights it gives are zero), and log T is written once at the end:
 //    one multiply per contributing pair instead of an exp and a log1p.
+//    The patch, the chunk walk and the output are warp_patch.cuh's,
+//    shared with K5, which differs only in how a chunk is staged.
 //  - The TPU ranked candidates with all-pairs compares and gathered chunks
 //    with one-hot matmuls. Here the covered candidates are compacted into
 //    shared memory with a shared counter and ordered by a block-wide
@@ -40,19 +42,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "alpha_box.cuh"
+#include "warp_patch.cuh"
 
 namespace {
 
-constexpr int CHUNK = 128;
+using eags::CHUNK;
+using eags::OUT_CH;
 constexpr int MAX_CAPT = 4096;
-constexpr int OUT_CH = 8;
-constexpr float LOG_T_MIN = -11.5f;
 constexpr int KEY_PAD = 0x7fffffff;
-constexpr float LN2_64 = 44.3614195558365f;   // 64 ln 2
 
+// Three 512-thread blocks (two pixels a thread) share an SM: registers are
+// held to 40 a thread for them (left free, the compiler took 53 and fit
+// two: 10% slower, PERF.md).
 template <int TILE, int PPT>
-__global__ void __launch_bounds__(TILE * TILE / PPT)
+__global__ void __launch_bounds__(TILE * TILE / PPT, PPT == 2 ? 3 : 1)
 fwd_kernel(const float* __restrict__ attrs, int64_t npad,
            const int* __restrict__ seg_start, const int* __restrict__ seg_cnt,
            const int* __restrict__ tile_ids, int tiles_x, int bands,
@@ -140,24 +143,14 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
     cols_out[(int64_t)s * capt + i] = s_col[i];
 
   // 4. Front-to-back compositing in chunks of 128 survivors; this warp's
-  //    patch is [px0, px0 + 7] x [py0, py0 + PATCH_H - 1] of the tile.
+  //    patch is [x0, x0 + 7] x [y0, y0 + PATCH_H - 1] of the tile.
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int x0 = (warp % NWX) * 8;
   const int y0 = (warp / NWX) * PATCH_H;
-  const float pu = tx0 + (float)(x0 + (lane & 7));
-  const float bx0 = tx0 + (float)x0, bx1 = bx0 + 7.0f;
-  const float by0 = ty0 + (float)y0, by1 = by0 + (float)(PATCH_H - 1);
-  float pv[PPT], tm[PPT], acc[PPT][4];
-  int ex[PPT];
-#pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    pv[q] = ty0 + (float)(y0 + (lane >> 3) + 4 * q);
-    tm[q] = 1.0f;
-    ex[q] = 0;
-    acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
-  }
-  const float t_stop = expf(LOG_T_MIN);
+  eags::FwdPatch<PPT> P;
+  eags::fwd_patch_init(P, tx0, ty0, x0, y0, lane);
+  const float t_stop = expf(eags::LOG_T_MIN);
   const int num_chunks = (n_surv + CHUNK - 1) / CHUNK;
   int eff = 0;
   bool go = num_chunks > 0;
@@ -180,68 +173,15 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
       s_box[tid] = eags::alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
     }
     __syncthreads();
-    // This warp's survivors: a 128-bit mask from one box test a lane per
-    // 32 survivors, walked front to back.
-    unsigned wm[CHUNK / 32];
-#pragma unroll
-    for (int k = 0; k < CHUNK / 32; ++k) {
-      const int j = k * 32 + lane;
-      wm[k] = __ballot_sync(0xffffffffu,
-                            j < jmax &&
-                                eags::box_meets(s_box[j], bx0, bx1, by0, by1));
-    }
-#pragma unroll
-    for (int k = 0; k < CHUNK / 32; ++k) {
-      for (unsigned m = wm[k]; m; m &= m - 1) {
-        const int j = k * 32 + __ffs(m) - 1;
-        const float mu = s_attr[0][j], mv = s_attr[1][j];
-        const float ca = s_attr[2][j], cb = s_attr[3][j], cc = s_attr[4][j];
-        const float op = s_attr[5][j];
-        const float f0 = s_attr[6][j], f1 = s_attr[7][j];
-        const float f2 = s_attr[8][j], f3 = s_attr[9][j];
-#pragma unroll
-        for (int q = 0; q < PPT; ++q) {
-          float du, dv, gg, alpha;
-          if (!eags::twin_alpha(pu, pv[q], mu, mv, ca, cb, cc, op, du, dv, gg,
-                                alpha))
-            continue;
-          if (ex[q] == 0) {
-            const float w = alpha * tm[q];
-            acc[q][0] += w * f0;
-            acc[q][1] += w * f1;
-            acc[q][2] += w * f2;
-            acc[q][3] += w * f3;
-          }
-          tm[q] *= 1.0f - alpha;
-          if (tm[q] < 0x1p-64f) {
-            tm[q] *= 0x1p64f;
-            ++ex[q];
-          }
-        }
-      }
-    }
+    eags::fwd_walk_chunk(P, s_attr, s_box, jmax, lane);
     ++eff;
-    int live = 0;
-#pragma unroll
-    for (int q = 0; q < PPT; ++q) live |= ex[q] == 0 && tm[q] > t_stop;
-    const int any_live = __syncthreads_or(live);
+    const int any_live = __syncthreads_or(eags::fwd_live(P, t_stop));
     go = (eff < num_chunks) && any_live;
   }
 
   // 5. Output block (8, PX).
-  float* o = out + (int64_t)s * OUT_CH * px;
-#pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    const int p = (y0 + (lane >> 3) + 4 * q) * TILE + x0 + (lane & 7);
-    o[0 * px + p] = acc[q][0];
-    o[1 * px + p] = acc[q][1];
-    o[2 * px + p] = acc[q][2];
-    o[3 * px + p] = acc[q][3];
-    o[4 * px + p] = 1.0f - (ex[q] == 0 ? tm[q] : 0.0f);
-    o[5 * px + p] = logf(tm[q]) - (float)ex[q] * LN2_64;
-    o[6 * px + p] = (float)eff;
-    o[7 * px + p] = (float)n_surv;
-  }
+  eags::fwd_store<TILE, PPT>(P, out + (int64_t)s * OUT_CH * px, x0, y0, lane,
+                             eff, n_surv);
 }
 
 template <int TILE, int PPT>

@@ -12,82 +12,93 @@
 // forms each survivor's grads of the 6 pose-dependent attr rows (mean u/v,
 // conic a/b/c, depth) summed over the tile's pixels, and contracts them
 // with the survivor's precomputed pose jacobian jac[p * 6 + ch, column]
-// (48, Npad). Each block writes its tile's 7 sums to an (S, 8) partial
-// that the wrapper sums; no (16, Npad) grad array is written, no global
-// atomics are used, and the result is the same from run to run.
+// (48, Npad). Each block writes its 7 sums to a row of an (S * regions, 8)
+// partial that the wrapper sums; no (16, Npad) grad array is written, no
+// global atomics are used, and the result is the same from run to run.
 //
-// What bounds it on the card: as K2, the replay (~40 FP32 operations and
-// two transcendentals per (pixel, survivor) pair). The contraction adds 42
-// jacobian reads and 42 multiply-adds per survivor and tile, a few per
-// cent of the replay.
+// What bounds it on the card: as K2, the replay (~10 FP32 operations to
+// test a pair inside its survivor's alpha box, ~47 more and an exp when it
+// contributes). The contraction adds 42 jacobian reads and multiply-adds
+// per survivor a block's warps contributed to, a few per cent of the
+// replay.
 //
-// Design, and how it answers the TPU version:
-//  - One block per selected tile, 256 threads, PX / 256 pixels a thread in
-//    registers (the replay state of replay.cuh).
-//  - Per survivor, the 6 per-pixel terms are summed with warp shuffles;
-//    lane 0 of each warp writes its warp's sum to its own shared-memory
-//    slot (no shared atomics), and the 8 warp slots are added in a fixed
-//    order. The TPU contracted a (16, capt) grad buffer with the jacobian
+// Design, and how it answers the TPU version: K2's replay
+// (composite_sorted_bwd.cu) with a contraction in place of its atomics.
+//  - K2's grid: nothing couples a tile's pixels in the backward, so at tile
+//    32 a tile takes four blocks, one per 16 x 16 quadrant, of 128 threads
+//    (two pixels a thread), or of 256 (one) when the grid has no more tiles
+//    than the card has SMs: the 1/8 tracking subset's 104 tiles become 416
+//    blocks of 8 warps. Tile 64 takes four 32 x 32 quadrants of 256
+//    threads, tile 16 one block of 256.
+//  - The replay is warp_patch.cuh's: compact warp patches, one alpha box
+//    per survivor staged with the chunk and one ballot per 32 survivors,
+//    linear T from K1's log T, alpha decisions rounded as the twin rounds
+//    them (twin_alpha) with FMA elsewhere. patch_step keeps only the 6
+//    pose terms (0-4 and 9, the JAX `gsel`), reduce6 sums them over the
+//    warp, and the warp's totals go to its own shared slots [warp][6][128].
+//  - After each chunk, thread j takes survivor j: it adds the survivor's
+//    warp slots in a fixed warp order (slot_total), skipping a survivor no
+//    warp emitted, so its jacobian is never read, and adds the 6 totals
+//    times the 42 jacobian values into 7 running sums. At the end the block
+//    reduces the 7 sums with shuffles and a fixed-order pass over the
+//    warps. The TPU contracted a (16, capt) grad buffer with the jacobian
 //    bands in VMEM and folded lanes into an (8, 128) block per program.
-//  - The contraction: thread j of the block takes survivor j of the chunk
-//    and adds its 6 totals times the 42 jacobian values into 7 running
-//    sums; at the end the block reduces the 7 sums with shuffles and a
-//    fixed-order pass over the warps.
-//  - Built with -fmad=false like K5.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "replay.cuh"
+#include "warp_patch.cuh"
 
 namespace {
 
 using eags::CHUNK;
-using eags::NTHREADS;
+using eags::MASK_WORDS;
 using eags::OUT_CH;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int PJ = 6;      // pose-dependent rows per parameter
+using eags::PJ;
+using eags::region;
 constexpr int NP = 7;      // pose parameters
-constexpr int P_MAX = 8;   // partial row width (row 7 is zero)
+constexpr int P_MAX = 8;   // partial row width (column 7 is zero)
 
-template <int PPT>
-__global__ void __launch_bounds__(NTHREADS)
+template <int TILE, int PPT>
+__global__ void __launch_bounds__(region(TILE) * region(TILE) / PPT)
 pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
-            int64_t npad, const int* __restrict__ tile_ids, int tile,
-            int tiles_x, int capt, const float* __restrict__ out,
+            int64_t npad, const int* __restrict__ tile_ids, int tiles_x,
+            int capt, const float* __restrict__ out,
             const int* __restrict__ cols, const float* __restrict__ dout,
             float* __restrict__ part) {
+  // Region RS x RS at (rx0, ry0) of the tile.
+  constexpr int RS = region(TILE);
+  constexpr int PARTS = TILE / RS;
+  constexpr int NT = RS * RS / PPT;
+  constexpr int NWARPS = NT / 32;
+  constexpr int PATCH_H = 4 * PPT;
+  constexpr int NWX = RS / 8;
+  static_assert(NT % 32 == 0 && NT >= CHUNK && RS % PATCH_H == 0, "");
   __shared__ float s_attr[10][CHUNK];
+  __shared__ float4 s_box[CHUNK];
   __shared__ float s_warp[NWARPS][PJ][CHUNK];
   __shared__ int s_col[CHUNK];
+  __shared__ unsigned s_wmask[NWARPS][MASK_WORDS];
   __shared__ float s_acc[NWARPS][NP];
 
-  const int s = blockIdx.x;
+  const int s = blockIdx.y;
+  const int rg = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int tc = tile_ids[s];
-  const int px = tile * tile;
-  const float tx0 = (float)((tc % tiles_x) * tile);
-  const float ty0 = (float)((tc / tiles_x) * tile);
+  constexpr int px = TILE * TILE;
+  const float tx0 = (float)((tc % tiles_x) * TILE);
+  const float ty0 = (float)((tc / tiles_x) * TILE);
   const float* o = out + (int64_t)s * OUT_CH * px;
   const float* g = dout + (int64_t)s * OUT_CH * px;
   const int eff = (int)o[6 * px];
   const int n_surv = (int)o[7 * px];
 
-  float pu[PPT], pv[PPT], d4[PPT][4], dA[PPT], log_after[PPT], bsum[PPT];
-#pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    const int p = tid + q * NTHREADS;
-    pu[q] = tx0 + (float)(p % tile);
-    pv[q] = ty0 + (float)(p / tile);
-    d4[q][0] = g[0 * px + p];
-    d4[q][1] = g[1 * px + p];
-    d4[q][2] = g[2 * px + p];
-    d4[q][3] = g[3 * px + p];
-    dA[q] = g[4 * px + p];
-    log_after[q] = o[5 * px + p];
-    bsum[q] = 0.0f;
-  }
+  eags::Patch<PPT> P;
+  eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0,
+                              (rg % PARTS) * RS + (warp % NWX) * 8,
+                              (rg / PARTS) * RS + (warp / NWX) * PATCH_H,
+                              lane);
   float acc[NP];
 #pragma unroll
   for (int p = 0; p < NP; ++p) acc[p] = 0.0f;
@@ -95,80 +106,41 @@ pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
   for (int ci = eff - 1; ci >= 0; --ci) {
     const int base = ci * CHUNK;
     const int jmax = min(CHUNK, n_surv - base);
-    __syncthreads();
-    for (int i = tid; i < CHUNK; i += NTHREADS)
-      s_col[i] = i < jmax ? cols[(int64_t)s * capt + base + i] : 0;
-    for (int i = tid; i < NWARPS * PJ * CHUNK; i += NTHREADS)
-      (&s_warp[0][0][0])[i] = 0.0f;
-    __syncthreads();
-    for (int i = tid; i < 10 * CHUNK; i += NTHREADS) {
-      const int ch = i / CHUNK;
-      const int j = i % CHUNK;
-      s_attr[ch][j] = j < jmax ? attrs[ch * npad + s_col[j]] : 0.0f;
+    __syncthreads();  // the last chunk's contraction has read s_col
+    if (tid < jmax) {
+      const int col = cols[(int64_t)s * capt + base + tid];
+      eags::stage(s_attr, s_box, tid, attrs, npad, col);
+      s_col[tid] = col;
     }
     __syncthreads();
 
-    for (int j = jmax - 1; j >= 0; --j) {
-      const float mu = s_attr[0][j], mv = s_attr[1][j];
-      const float ca = s_attr[2][j], cb = s_attr[3][j], cc = s_attr[4][j];
-      const float op = s_attr[5][j];
-      const float f0 = s_attr[6][j], f1 = s_attr[7][j];
-      const float f2 = s_attr[8][j], f3 = s_attr[9][j];
-      float r[PJ];
-#pragma unroll
-      for (int c = 0; c < PJ; ++c) r[c] = 0.0f;
-      int any = 0;
-#pragma unroll
-      for (int q = 0; q < PPT; ++q) {
-        eags::ReplayTerms e;
-        if (!eags::replay_step(pu[q], pv[q], mu, mv, ca, cb, cc, op, f0, f1,
-                               f2, f3, d4[q], dA[q], log_after[q], bsum[q],
-                               e))
-          continue;
-        const float du = e.du, dv = e.dv;
-        const float dpower = e.d_alpha * e.alpha;
-        r[0] += dpower * (ca * du + cb * dv);
-        r[1] += dpower * (cc * dv + cb * du);
-        r[2] += -0.5f * du * du * dpower;
-        r[3] += -du * dv * dpower;
-        r[4] += -0.5f * dv * dv * dpower;
-        r[5] += d4[q][3] * e.w;
-        any = 1;
-      }
-      if (__any_sync(0xffffffffu, any)) {
-#pragma unroll
-        for (int c = 0; c < PJ; ++c) {
-          float v = r[c];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_down_sync(0xffffffffu, v, off);
-          r[c] = v;
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < PJ; ++c) s_warp[warp][c][j] = r[c];
-        }
-      }
-    }
+    unsigned wm[MASK_WORDS];
+    eags::walk_chunk<PJ>(P, s_attr, s_box, jmax, lane, wm,
+                         [&](int j, int ch, float v) {
+                           s_warp[warp][ch][j] = v;
+                         });
+    eags::store_mask(s_wmask[warp], lane, wm);
     __syncthreads();
-    // Contract: thread j takes survivor j of this chunk.
-    for (int j = tid; j < jmax; j += NTHREADS) {
-      float tot[PJ];
+    // Contract: thread j takes survivor j of this chunk (NT >= CHUNK).
+    if (tid < jmax) {
+      unsigned hit = 0;
 #pragma unroll
-      for (int c = 0; c < PJ; ++c) {
-        float v = 0.0f;
-#pragma unroll
-        for (int w = 0; w < NWARPS; ++w) v += s_warp[w][c][j];
-        tot[c] = v;
-      }
-      const int col = s_col[j];
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        float v = 0.0f;
+      for (int w = 0; w < NWARPS; ++w) hit |= s_wmask[w][tid >> 5];
+      if ((hit >> (tid & 31)) & 1u) {
+        float tot[PJ];
 #pragma unroll
         for (int c = 0; c < PJ; ++c)
-          v += tot[c] * jac[(int64_t)(p * PJ + c) * npad + col];
-        acc[p] += v;
+          tot[c] = eags::slot_total<NWARPS, CHUNK, PJ>(
+              &s_warp[0][0][0], &s_wmask[0][0], c, tid);
+        const int64_t col = s_col[tid];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          float v = 0.0f;
+#pragma unroll
+          for (int c = 0; c < PJ; ++c)
+            v += tot[c] * jac[(int64_t)(p * PJ + c) * npad + col];
+          acc[p] += v;
+        }
       }
     }
   }
@@ -186,38 +158,50 @@ pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
   if (tid < P_MAX) {
     float v = 0.0f;
     if (tid < NP) {
+#pragma unroll
       for (int w = 0; w < NWARPS; ++w) v += s_acc[w][tid];
     }
-    part[(int64_t)s * P_MAX + tid] = v;
+    part[((int64_t)s * PARTS * PARTS + rg) * P_MAX + tid] = v;
   }
+}
+
+template <int TILE, int PPT>
+int launch(const float* attrs, const float* jac, int64_t npad,
+           const int* tile_ids, int n_sel, int tiles_x, int capt,
+           const float* out, const int* cols, const float* dout, float* part,
+           cudaStream_t st) {
+  constexpr int RS = region(TILE);
+  const dim3 grid((TILE / RS) * (TILE / RS), n_sel);
+  pose_kernel<TILE, PPT><<<grid, RS * RS / PPT, 0, st>>>(
+      attrs, jac, npad, tile_ids, tiles_x, capt, out, cols, dout, part);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// K2's grid: at tile 32, quadrants of two pixels a thread (128 threads)
+// when the grid has more tiles than the card has SMs, of one (256 threads)
+// when it has no more, as the tracker's 1/8 subset. `part` has n_sel *
+// (tile / region(tile))^2 rows of 8.
 extern "C" int eags_pose_grad_sorted(
     const float* attrs, const float* jac, int64_t npad, const int* tile_ids,
     int n_sel, int tile, int tiles_x, int capt, const float* out,
     const int* cols, const float* dout, float* part, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(n_sel), block(NTHREADS);
   switch (tile) {
     case 16:
-      pose_kernel<1><<<grid, block, 0, st>>>(attrs, jac, npad, tile_ids, tile,
-                                             tiles_x, capt, out, cols, dout,
-                                             part);
-      break;
+      return launch<16, 1>(attrs, jac, npad, tile_ids, n_sel, tiles_x, capt,
+                           out, cols, dout, part, st);
     case 32:
-      pose_kernel<4><<<grid, block, 0, st>>>(attrs, jac, npad, tile_ids, tile,
-                                             tiles_x, capt, out, cols, dout,
-                                             part);
-      break;
+      if (n_sel <= eags::sm_count())
+        return launch<32, 1>(attrs, jac, npad, tile_ids, n_sel, tiles_x,
+                             capt, out, cols, dout, part, st);
+      return launch<32, 2>(attrs, jac, npad, tile_ids, n_sel, tiles_x, capt,
+                           out, cols, dout, part, st);
     case 64:
-      pose_kernel<16><<<grid, block, 0, st>>>(attrs, jac, npad, tile_ids,
-                                              tile, tiles_x, capt, out, cols,
-                                              dout, part);
-      break;
+      return launch<64, 4>(attrs, jac, npad, tile_ids, n_sel, tiles_x, capt,
+                           out, cols, dout, part, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

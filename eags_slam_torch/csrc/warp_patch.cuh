@@ -1,35 +1,39 @@
-// The warp-patch replay shared by the backward kernels K2
-// (composite_sorted_bwd.cu), K3 (composite_sorted_bwd_window.cu) and K6
+// The warp-patch loops of the compositing kernels: the forward walk shared
+// by K1 (composite_sorted_fwd.cu) and K5 (composite_entries_fwd.cu), and
+// the backward replay shared by K2 (composite_sorted_bwd.cu), K3
+// (composite_sorted_bwd_window.cu), K4 (pose_grad_sorted.cu) and K6
 // (composite_entries_bwd.cu): what each does for a tile's pixels once a
-// chunk of its survivors (K6: entries) is staged in shared memory. Only the
-// way the warps' totals leave the block differs between the three.
+// chunk of its survivors (K5, K6: entries) is staged in shared memory. The
+// forward kernels differ only in how a chunk is staged, the backward ones
+// in how the warps' totals leave the block.
 //
 //  - A warp owns a compact 8 x (4 PPT) patch of the tile: lane l holds
 //    column l % 8 and rows l / 8 + 4 q, q < PPT. Its pixel state lives in
-//    registers (Patch): the output cotangents, the running "behind" sum b,
-//    and the transmittance after the survivors already replayed, kept
-//    linear as tm 2^(-64 ex) from the forward's log T (weights below 2^-64
-//    are zero in the kernels and in the twins alike).
+//    registers (FwdPatch, Patch), with the transmittance kept linear as
+//    tm 2^(-64 ex) (weights below 2^-64 are zero in the kernels and in the
+//    twins alike).
 //  - patch_ballot tests the chunk's alpha boxes (alpha_box.cuh) against the
-//    patch, one survivor a lane and one ballot per 32; walk_words walks the
-//    survivors whose box meets the patch back to front, over all of the
-//    chunk's mask words (walk_chunk: K2, K6) or a part of them between two
-//    sums of the slots (K3). Per pair:
+//    patch, one survivor a lane and one ballot per 32; a warp walks only
+//    the survivors whose box meets its patch. The alpha decision is
+//    twin_alpha's, rounded as the twin rounds it; the rest is built with
+//    FMA.
+//  - Forward (fwd_walk_chunk): front to back, T *= 1 - alpha, rescaled by
+//    2^64 when it falls below 2^-64; log T is written once at the end
+//    (fwd_store), and fwd_live is the tile-wide stop's per-lane test.
+//  - Backward (walk_chunk, walk_words): back to front from the forward's
+//    log T, over all of the chunk's mask words (K2, K4, K6) or a part of
+//    them between two sums of the slots (K3). Per pair:
 //      T_before = T_after / (1 - alpha),  q = dout_rgbd . feat + dout_alpha,
 //      d_alpha = T q - b / (1 - alpha),   b += alpha T q,
 //    (1 - alpha >= 0.01, so the twin's max(., 1e-6) never binds), with dop
-//    through g = exp(power) where alpha was clipped at 0.99. The alpha
-//    decision is twin_alpha's, rounded as the twin rounds it; the rest is
-//    built with FMA.
+//    through g = exp(power) where alpha was clipped at 0.99.
 //  - reduce10 sums a survivor's 10 terms over the warp with a transposing
-//    shuffle reduction; walk_words hands each warp total to the kernel's
-//    `emit` and leaves in `wm` the survivors the warp contributed to.
+//    shuffle reduction (reduce6 the 6 pose-dependent ones of K4);
+//    walk_words hands each warp total to the kernel's `emit` and leaves in
+//    `wm` the survivors the warp contributed to.
 //  - slot_total adds per-warp slots [warp][channel][survivor] in warp
 //    order, skipping the slots a warp's mask says it did not write: the
 //    same order every run.
-//
-// Not to be included beside replay.cuh (K4's step), which defines the same
-// constants.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,9 +46,11 @@ namespace eags {
 constexpr int CHUNK = 128;
 constexpr int OUT_CH = 8;
 constexpr int NG = 10;
+constexpr int PJ = 6;     // K4's pose-dependent terms: 0-4 and 9 of NG
 constexpr int MASK_WORDS = CHUNK / 32;
 constexpr float LN2_64_INV = 0.0225421100138f;   // 1 / (64 ln 2)
 constexpr float LN2_64 = 44.3614195558365f;
+constexpr float LOG_T_MIN = -11.5f;              // the tile-wide stop
 
 // The side of the square region of a tile that one K2 block takes: the
 // whole tile at 16, a quadrant at 32 and 64.
@@ -95,6 +101,70 @@ __device__ __forceinline__ float reduce10(const float (&v)[NG], int lane,
   const bool valid = (lane & 1) == 0 && (b3 ? !b2 : local < 3);
   ch = valid ? (b4 ? 5 : 0) + local : -1;
   return d;
+}
+
+// The same for the 6 values of K4 (8 shuffles: 3 + 2 + 1 + 1 + 1). The
+// lanes whose low two bits are zero report; lanes 12 and 28 hold none.
+__device__ __forceinline__ float reduce6(const float (&v)[PJ], int lane,
+                                         int& ch) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  // xor 16: keep channels 3 * b4 + [0, 3).
+  float a[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float send = b4 ? v[k] : v[3 + k];
+    const float keep = b4 ? v[3 + k] : v[k];
+    a[k] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+  // xor 8: keep a[0..1] (b3 = 0) or a[2] (b3 = 1).
+  float b[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float lo = a[k];
+    const float hi = k < 1 ? a[2] : 0.0f;
+    const float send = b3 ? lo : hi;
+    const float keep = b3 ? hi : lo;
+    b[k] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  // xor 4: keep b[0] (b2 = 0) or b[1] (b2 = 1); xor 2, 1: the lane quad.
+  float d = (b2 ? b[1] : b[0]) +
+            __shfl_xor_sync(0xffffffffu, b2 ? b[0] : b[1], 4);
+  d += __shfl_xor_sync(0xffffffffu, d, 2);
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  const bool valid = (lane & 3) == 0 && !(b3 && b2);
+  ch = valid ? (b4 ? 3 : 0) + (b3 ? 2 : (b2 ? 1 : 0)) : -1;
+  return d;
+}
+
+// One lane's pixels of a forward warp patch: colour / depth sums and T.
+template <int PPT>
+struct FwdPatch {
+  float bx0, bx1, by0, by1;   // the patch's pixel-centre bounds
+  float pu;                   // the lane's column
+  float pv[PPT];              // its rows
+  float acc[PPT][4];          // rgb + depth sums
+  float tm[PPT];              // T: tm * 2^(-64 ex)
+  int ex[PPT];
+};
+
+// The patch whose top-left pixel is (x0, y0) of the tile with its corner
+// at (tx0, ty0), before any survivor.
+template <int PPT>
+__device__ __forceinline__ void fwd_patch_init(FwdPatch<PPT>& P, float tx0,
+                                               float ty0, int x0, int y0,
+                                               int lane) {
+  P.bx0 = tx0 + (float)x0;
+  P.bx1 = P.bx0 + 7.0f;
+  P.by0 = ty0 + (float)y0;
+  P.by1 = P.by0 + (float)(4 * PPT - 1);
+  P.pu = tx0 + (float)(x0 + (lane & 7));
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) {
+    P.pv[q] = ty0 + (float)(y0 + (lane >> 3) + 4 * q);
+    P.tm[q] = 1.0f;
+    P.ex[q] = 0;
+    P.acc[q][0] = P.acc[q][1] = P.acc[q][2] = P.acc[q][3] = 0.0f;
+  }
 }
 
 // One lane's pixels of a warp patch and their replay state.
@@ -154,12 +224,14 @@ __device__ __forceinline__ void stage(float (*s_attr)[CHUNK], float4* s_box,
 }
 
 // Replay survivor j of the staged chunk over the lane's pixels: move their
-// state past it and add its 10 gradient terms to r. Returns whether any of
-// the lane's pixels took a contribution from it.
-template <int PPT>
+// state past it and add its NC gradient terms to r: all 10 (NG), or K4's
+// six (PJ: terms 0-4 and 9, the JAX `gsel`). Returns whether any of the
+// lane's pixels took a contribution from it.
+template <int NC, int PPT>
 __device__ __forceinline__ bool patch_step(Patch<PPT>& P,
                                            const float (*s_attr)[CHUNK],
-                                           int j, float (&r)[NG]) {
+                                           int j, float (&r)[NC]) {
+  static_assert(NC == NG || NC == PJ, "");
   const float mu = s_attr[0][j], mv = s_attr[1][j];
   const float ca = s_attr[2][j], cb = s_attr[3][j];
   const float cc = s_attr[4][j], op = s_attr[5][j];
@@ -189,11 +261,15 @@ __device__ __forceinline__ bool patch_step(Patch<PPT>& P,
     r[2] += -0.5f * du * du * dpower;
     r[3] += -du * dv * dpower;
     r[4] += -0.5f * dv * dv * dpower;
-    r[5] += d_alpha * gg;
-    r[6] += P.d4[q][0] * w;
-    r[7] += P.d4[q][1] * w;
-    r[8] += P.d4[q][2] * w;
-    r[9] += P.d4[q][3] * w;
+    if constexpr (NC == NG) {
+      r[5] += d_alpha * gg;
+      r[6] += P.d4[q][0] * w;
+      r[7] += P.d4[q][1] * w;
+      r[8] += P.d4[q][2] * w;
+      r[9] += P.d4[q][3] * w;
+    } else {
+      r[5] += P.d4[q][3] * w;
+    }
     any = true;
   }
   return any;
@@ -201,8 +277,8 @@ __device__ __forceinline__ bool patch_step(Patch<PPT>& P,
 
 // The box ballots of the staged chunk (jmax survivors) for this warp's
 // patch: bit j % 32 of word j / 32 is set when survivor j's box meets it.
-template <int PPT>
-__device__ __forceinline__ void patch_ballot(const Patch<PPT>& P,
+template <class PatchT>
+__device__ __forceinline__ void patch_ballot(const PatchT& P,
                                              const float4* s_box, int jmax,
                                              int lane,
                                              unsigned (&wm)[MASK_WORDS]) {
@@ -216,10 +292,10 @@ __device__ __forceinline__ void patch_ballot(const Patch<PPT>& P,
 }
 
 // Walk the survivors of mask words hi down to lo back to front. Each warp
-// total goes to emit(j, channel, value) on the lane that holds it. A
-// survivor no lane contributed to leaves wm, so wm says which survivors
-// the warp emitted.
-template <int PPT, class Emit>
+// total of the NC terms goes to emit(j, channel, value) on the lane that
+// holds it. A survivor no lane contributed to leaves wm, so wm says which
+// survivors the warp emitted.
+template <int NC = NG, int PPT, class Emit>
 __device__ __forceinline__ void walk_words(Patch<PPT>& P,
                                            const float (*s_attr)[CHUNK],
                                            int lane,
@@ -232,13 +308,17 @@ __device__ __forceinline__ void walk_words(Patch<PPT>& P,
       const int bit = 31 - __clz(m);
       m &= ~(1u << bit);
       const int j = k * 32 + bit;
-      float r[NG];
+      float r[NC];
 #pragma unroll
-      for (int c = 0; c < NG; ++c) r[c] = 0.0f;
-      const bool any = patch_step(P, s_attr, j, r);
+      for (int c = 0; c < NC; ++c) r[c] = 0.0f;
+      const bool any = patch_step<NC>(P, s_attr, j, r);
       if (__any_sync(0xffffffffu, any)) {
         int ch;
-        const float val = reduce10(r, lane, ch);
+        float val;
+        if constexpr (NC == NG)
+          val = reduce10(r, lane, ch);
+        else
+          val = reduce6(r, lane, ch);
         if (ch >= 0) emit(j, ch, val);
       } else {
         wm[k] &= ~(1u << bit);
@@ -249,7 +329,7 @@ __device__ __forceinline__ void walk_words(Patch<PPT>& P,
 
 // Walk the whole staged chunk for this warp's patch: ballots, then every
 // mask word back to front.
-template <int PPT, class Emit>
+template <int NC = NG, int PPT, class Emit>
 __device__ __forceinline__ void walk_chunk(Patch<PPT>& P,
                                            const float (*s_attr)[CHUNK],
                                            const float4* s_box, int jmax,
@@ -257,7 +337,7 @@ __device__ __forceinline__ void walk_chunk(Patch<PPT>& P,
                                            unsigned (&wm)[MASK_WORDS],
                                            Emit&& emit) {
   patch_ballot(P, s_box, jmax, lane, wm);
-  walk_words(P, s_attr, lane, wm, MASK_WORDS - 1, 0, emit);
+  walk_words<NC>(P, s_attr, lane, wm, MASK_WORDS - 1, 0, emit);
 }
 
 // Lanes 0-3 store the warp's mask words.
@@ -269,10 +349,10 @@ __device__ __forceinline__ void store_mask(unsigned* s_wmask_warp, int lane,
 }
 
 // The fixed-order total of channel c of survivor j over the NW warps'
-// slots s_warp[w][c][j % SLOTS] that their masks s_wmask[w][.] mark as
-// written (SLOTS survivors a slot row: the chunk, or the part of it walked
-// since the slots were last summed).
-template <int NW, int SLOTS = CHUNK>
+// slots s_warp[w][c][j % SLOTS] (NC channels a warp) that their masks
+// s_wmask[w][.] mark as written (SLOTS survivors a slot row: the chunk, or
+// the part of it walked since the slots were last summed).
+template <int NW, int SLOTS = CHUNK, int NC = NG>
 __device__ __forceinline__ float slot_total(const float* s_warp,
                                             const unsigned* s_wmask, int c,
                                             int j) {
@@ -280,8 +360,81 @@ __device__ __forceinline__ float slot_total(const float* s_warp,
 #pragma unroll
   for (int w = 0; w < NW; ++w)
     if ((s_wmask[w * MASK_WORDS + (j >> 5)] >> (j & 31)) & 1u)
-      v += s_warp[(w * NG + c) * SLOTS + j % SLOTS];
+      v += s_warp[(w * NC + c) * SLOTS + j % SLOTS];
   return v;
+}
+
+// Composite the staged chunk (jmax survivors) over the lane's pixels front
+// to back, walking only the survivors whose box meets the warp's patch.
+template <int PPT>
+__device__ __forceinline__ void fwd_walk_chunk(FwdPatch<PPT>& P,
+                                               const float (*s_attr)[CHUNK],
+                                               const float4* s_box,
+                                               int jmax, int lane) {
+  unsigned wm[MASK_WORDS];
+  patch_ballot(P, s_box, jmax, lane, wm);
+#pragma unroll
+  for (int k = 0; k < MASK_WORDS; ++k) {
+    for (unsigned m = wm[k]; m; m &= m - 1) {
+      const int j = k * 32 + __ffs(m) - 1;
+      const float mu = s_attr[0][j], mv = s_attr[1][j];
+      const float ca = s_attr[2][j], cb = s_attr[3][j], cc = s_attr[4][j];
+      const float op = s_attr[5][j];
+      const float f0 = s_attr[6][j], f1 = s_attr[7][j];
+      const float f2 = s_attr[8][j], f3 = s_attr[9][j];
+#pragma unroll
+      for (int q = 0; q < PPT; ++q) {
+        float du, dv, gg, alpha;
+        if (!twin_alpha(P.pu, P.pv[q], mu, mv, ca, cb, cc, op, du, dv, gg,
+                        alpha))
+          continue;
+        if (P.ex[q] == 0) {
+          const float w = alpha * P.tm[q];
+          P.acc[q][0] += w * f0;
+          P.acc[q][1] += w * f1;
+          P.acc[q][2] += w * f2;
+          P.acc[q][3] += w * f3;
+        }
+        P.tm[q] *= 1.0f - alpha;
+        if (P.tm[q] < 0x1p-64f) {
+          P.tm[q] *= 0x1p64f;
+          ++P.ex[q];
+        }
+      }
+    }
+  }
+}
+
+// Whether a pixel of the lane still has T > t_stop = exp(LOG_T_MIN): the
+// tile goes on to its next chunk while one of its pixels does.
+template <int PPT>
+__device__ __forceinline__ int fwd_live(const FwdPatch<PPT>& P,
+                                        float t_stop) {
+  int live = 0;
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) live |= P.ex[q] == 0 && P.tm[q] > t_stop;
+  return live;
+}
+
+// The lane's pixels of the tile's (8, PX) output block o: rgb, depth,
+// alpha = 1 - T, log T, chunks used (eff) and the survivor / entry count.
+template <int TILE, int PPT>
+__device__ __forceinline__ void fwd_store(const FwdPatch<PPT>& P, float* o,
+                                          int x0, int y0, int lane, int eff,
+                                          int count) {
+  constexpr int px = TILE * TILE;
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) {
+    const int p = (y0 + (lane >> 3) + 4 * q) * TILE + x0 + (lane & 7);
+    o[0 * px + p] = P.acc[q][0];
+    o[1 * px + p] = P.acc[q][1];
+    o[2 * px + p] = P.acc[q][2];
+    o[3 * px + p] = P.acc[q][3];
+    o[4 * px + p] = 1.0f - (P.ex[q] == 0 ? P.tm[q] : 0.0f);
+    o[5 * px + p] = logf(P.tm[q]) - (float)P.ex[q] * LN2_64;
+    o[6 * px + p] = (float)eff;
+    o[7 * px + p] = (float)count;
+  }
 }
 
 }  // namespace eags

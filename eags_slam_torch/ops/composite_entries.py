@@ -23,8 +23,9 @@ Semantics (identical in kernel and twin):
     (16, Epad) that are zero in every column K5 did not composite
     (early-stopped chunks, alignment gaps, the padded tail). Every entry
     column belongs to one tile, so K6 writes each column once: no atomics,
-    the same result from run to run. K6 skips the pairs outside each
-    entry's alpha box (`composite_sorted.alpha_box`), where alpha is zero.
+    the same result from run to run. K5 and K6 skip the pairs outside
+    each entry's alpha box (`composite_sorted.alpha_box`), where alpha is
+    zero.
 
 The twins are the sorted backend's chunk loop and replay
 (`composite_sorted._composite_cols`, `_replay_grads`) on each tile's
@@ -33,7 +34,9 @@ contiguous column range.
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel (built from `csrc/` with the other kernels, at first use) or raises.
 `entries_fwd_launches` / `entries_bwd_launches` count kernel launches,
-`entries_fwd_twin_calls` / `entries_bwd_twin_calls` twin calls.
+`entries_fwd_twin_calls` / `entries_bwd_twin_calls` twin calls;
+`layout_counts` splits the launches by the layout the caller names (the
+render binning, or the tracker's frozen binning).
 """
 from __future__ import annotations
 
@@ -46,6 +49,9 @@ entries_fwd_launches = 0
 entries_bwd_launches = 0
 entries_fwd_twin_calls = 0
 entries_bwd_twin_calls = 0
+LAYOUTS = ("render", "frozen")
+# Launches by layout: {layout: [K5, K6]}.
+layout_launches = {k: [0, 0] for k in LAYOUTS}
 
 
 def reset_counts() -> None:
@@ -53,6 +59,14 @@ def reset_counts() -> None:
     global entries_fwd_twin_calls, entries_bwd_twin_calls
     entries_fwd_launches = entries_bwd_launches = 0
     entries_fwd_twin_calls = entries_bwd_twin_calls = 0
+    for v in layout_launches.values():
+        v[:] = [0, 0]
+
+
+def layout_counts() -> dict:
+    """Kernel launches by layout: {"K5": {layout: n}, "K6": {layout: n}}."""
+    return {kid: {k: v[i] for k, v in layout_launches.items()}
+            for i, kid in enumerate(("K5", "K6"))}
 
 
 def counts() -> dict:
@@ -96,7 +110,9 @@ def composite_entries_bwd_plain(entries, start, count, out, dout, tile: int,
     return _replay_grads(entries, tile_ids, out, cols, dout, tile, tiles_x)
 
 
-def _check_args(entries, start, count):
+def _check_args(entries, start, count, layout):
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     _check(entries, "entries", torch.float32, 2)
     _check(start, "start", torch.int32, 1)
     _check(count, "count", torch.int32, 1)
@@ -104,9 +120,11 @@ def _check_args(entries, start, count):
         raise ValueError("entries must be (16, Epad), start / count (T,)")
 
 
-def composite_entries_fwd(entries, start, count, tile: int, tiles_x: int):
+def composite_entries_fwd(entries, start, count, tile: int, tiles_x: int,
+                          layout: str = "render"):
     """K5 on CUDA tensors, the plain twin on CPU tensors. Returns out
-    (T, 8, PX) f32."""
+    (T, 8, PX) f32. `layout` (render or frozen) only tags the launch
+    count."""
     if entries.device.type == "cpu":
         return composite_entries_fwd_plain(entries, start, count, tile,
                                            tiles_x)
@@ -115,7 +133,7 @@ def composite_entries_fwd(entries, start, count, tile: int, tiles_x: int):
                            f"{entries.device}")
     global entries_fwd_launches
     lib = load_kernels()
-    _check_args(entries, start, count)
+    _check_args(entries, start, count, layout)
     if tile not in (16, 32, 64):
         raise ValueError(f"K5 takes tile in (16, 32, 64); got {tile}")
     t = start.shape[0]
@@ -129,13 +147,15 @@ def composite_entries_fwd(entries, start, count, tile: int, tiles_x: int):
         torch.cuda.current_stream(entries.device).cuda_stream)
     _cuda_check(err, "K5 launch")
     entries_fwd_launches += 1
+    layout_launches[layout][0] += 1
     return out
 
 
 def composite_entries_bwd(entries, start, count, out, dout, tile: int,
-                          tiles_x: int):
+                          tiles_x: int, layout: str = "render"):
     """K6 on CUDA tensors, the plain twin on CPU tensors. Returns grads
-    (16, Epad) f32, zero in the columns K5 did not composite."""
+    (16, Epad) f32, zero in the columns K5 did not composite. `layout` only
+    tags the launch count."""
     if entries.device.type == "cpu":
         return composite_entries_bwd_plain(entries, start, count, out, dout,
                                            tile, tiles_x)
@@ -144,7 +164,7 @@ def composite_entries_bwd(entries, start, count, out, dout, tile: int,
                            f"{entries.device}")
     global entries_bwd_launches
     lib = load_kernels()
-    _check_args(entries, start, count)
+    _check_args(entries, start, count, layout)
     _check(out, "out", torch.float32, 3)
     _check(dout, "dout", torch.float32, 3)
     t = start.shape[0]
@@ -157,6 +177,7 @@ def composite_entries_bwd(entries, start, count, out, dout, tile: int,
         torch.cuda.current_stream(entries.device).cuda_stream)
     _cuda_check(err, "K6 launch")
     entries_bwd_launches += 1
+    layout_launches[layout][1] += 1
     return grads
 
 
@@ -164,26 +185,30 @@ class CompositeEntries(torch.autograd.Function):
     """Differentiable w.r.t. entries rows 0-9."""
 
     @staticmethod
-    def forward(ctx, entries, start, count, tile, tiles_x):
+    def forward(ctx, entries, start, count, tile, tiles_x, layout):
         entries = entries.contiguous()
-        out = composite_entries_fwd(entries, start, count, tile, tiles_x)
+        out = composite_entries_fwd(entries, start, count, tile, tiles_x,
+                                    layout)
         ctx.save_for_backward(entries, start, count, out)
-        ctx.geom = (tile, tiles_x)
+        ctx.geom = (tile, tiles_x, layout)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         entries, start, count, out = ctx.saved_tensors
-        tile, tiles_x = ctx.geom
+        tile, tiles_x, layout = ctx.geom
         grads = composite_entries_bwd(entries, start, count, out,
-                                      dout.contiguous(), tile, tiles_x)
-        return grads, None, None, None, None
+                                      dout.contiguous(), tile, tiles_x,
+                                      layout)
+        return grads, None, None, None, None, None
 
 
-def composite_entries(entries, start, count, tile: int, tiles_x: int):
+def composite_entries(entries, start, count, tile: int, tiles_x: int,
+                      layout: str = "render"):
     """entries (16, Epad) with 128-aligned, depth-sorted tile segments
     [start, start + count). Returns (T, 8, PX) tile images (channels: see
-    module doc)."""
+    module doc). `layout` names the binning for the launch counts: the
+    render's, or the tracker's frozen one."""
     return CompositeEntries.apply(entries, start.to(torch.int32).contiguous(),
                                   count.to(torch.int32).contiguous(), tile,
-                                  tiles_x)
+                                  tiles_x, layout)

@@ -32,9 +32,9 @@ Semantics (identical in kernel and twin):
   - The backward mirrors `_replay_chunks` term by term, including dop =
     sum(d_alpha * g) with g = exp(min(power, 0)) where alpha was clipped at
     0.99, and the max(1 - alpha, 1e-6) guard. Grads land in (16, Npad).
-  - K1, K2 and K3 skip the (pixel, survivor) pairs outside each
-    survivor's conservative alpha box (`alpha_box`), where alpha is zero:
-    the skip changes no sum.
+  - Every kernel (K1-K4 here, K5 / K6 in `composite_entries`) skips the
+    (pixel, survivor) pairs outside each survivor's conservative alpha box
+    (`alpha_box`), where alpha is zero: the skip changes no sum.
   - K3 computes K2's grads with another accumulation (`rmw_window`): a
     thread-block cluster takes a run of consecutive entries of tile_ids
     (at most `group`; `window_run` takes one)
@@ -188,8 +188,8 @@ def _chunk_alpha(e, pu, pv, n_valid):
     return alpha, g, du, dv
 
 
-# The alpha box of csrc/alpha_box.cuh (K1, K2, K3 and K6 skip a warp's
-# patch that misses it). Widening: the float32 quadratic form may
+# The alpha box of csrc/alpha_box.cuh (every kernel skips a warp's patch
+# that misses it). Widening: the float32 quadratic form may
 # undershoot the exact one by ~12 eps kappa of itself, kappa = (a + c)^2 /
 # det.
 BOX_KAPPA_EPS = 64.0 * 2.0 ** -23
@@ -368,18 +368,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("composite_sorted_fwd.cu", "composite_sorted_bwd.cu",
            "composite_sorted_bwd_window.cu", "pose_grad_sorted.cu",
            "composite_entries_fwd.cu", "composite_entries_bwd.cu")
-HEADERS = ("replay.cuh", "alpha_box.cuh", "warp_patch.cuh")
+HEADERS = ("alpha_box.cuh", "warp_patch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eags_kernels"
+# Every kernel rounds its alpha decisions as the twin does with explicit
+# intrinsics (`twin_alpha`, alpha_box.cuh) and uses FMA elsewhere.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
-# K1, K2, K3 and K6 round their alpha decisions as the twin does with
-# explicit intrinsics (alpha_box.cuh) and use FMA elsewhere; K4 and K5 keep
-# the whole-file -fmad=false they were checked with.
-NO_FMAD = ("pose_grad_sorted.cu", "composite_entries_fwd.cu")
-
-
-def _flags(name: str) -> list:
-    return NVCC_FLAGS + (["-fmad=false"] if name in NO_FMAD else [])
 
 
 _LIB = None
@@ -421,8 +415,7 @@ def build_kernels(verbose: bool = False) -> Path:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
-    for name in SOURCES:
-        h.update(" ".join(_flags(name)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"libeags_composite_{h.hexdigest()[:16]}.so"
     if lib.exists():
         build_seconds = 0.0
@@ -433,7 +426,7 @@ def build_kernels(verbose: bool = False) -> Path:
     ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (Path(n).stem + ".o") for n in SOURCES]
-        build_log = _run_all([[nvcc, *_flags(n), *ptxas, "-c", "-o", str(o),
+        build_log = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
                                str(CSRC / n)] for n, o in zip(SOURCES, objs)],
                              "nvcc", verbose)
         tmp_lib = Path(tmp) / lib.name
@@ -610,13 +603,20 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
     return grads
 
 
+def regions(tile: int) -> int:
+    """Blocks a tile takes in K2's grid (K2, K4): the whole tile at 16,
+    four quadrants at 32 and 64 (`region` in csrc/warp_patch.cuh)."""
+    return 1 if tile <= 16 else 4
+
+
 def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
                      tiles_x: int):
     """K4 on CUDA tensors, the plain twin on CPU tensors. `attrs`, `out`,
     `cols` are K1's input and residuals, `dout` the (S, 8, PX) cotangent,
     `jac` (48, Npad) the pose jacobian. Returns dpose (7,) f32: each block
-    writes its tile's 7 sums in a fixed order and the (S, 8) partials are
-    summed here, so the result does not change from run to run."""
+    (a tile's region, K2's grid) writes its 7 sums in a fixed order and the
+    (S * regions, 8) partials are summed here, so the result does not
+    change from run to run."""
     if attrs.device.type == "cpu":
         return pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols, dout,
                                       tile, tiles_x)
@@ -635,8 +635,11 @@ def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
     if jac.shape != (P_MAX * PJ, attrs.shape[1]):
         raise ValueError(f"jac must be ({P_MAX * PJ}, Npad), got "
                          f"{tuple(jac.shape)}")
+    if tile not in (16, 32, 64):
+        raise ValueError(f"K4 takes tile in (16, 32, 64); got {tile}")
     s = tile_ids.shape[0]
-    part = torch.empty((s, P_MAX), dtype=torch.float32, device=attrs.device)
+    part = torch.empty((s * regions(tile), P_MAX), dtype=torch.float32,
+                       device=attrs.device)
     if s == 0:
         return part.new_zeros(7)
     err = lib.eags_pose_grad_sorted(

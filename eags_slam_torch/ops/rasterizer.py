@@ -683,7 +683,8 @@ def render_frozen(fb: FrozenBinning, w2c, cam: Camera,
                         device=fb.e3d.device)
     entries = torch.cat([torch.stack(rows[:10], 0), zeros], 0)
     tiles_x, _ = _tiles(cam, cfg)
-    out = composite_entries(entries, fb.pstart, fb.count, cfg.tile, tiles_x)
+    out = composite_entries(entries, fb.pstart, fb.count, cfg.tile, tiles_x,
+                            layout="frozen")
     return _full_image(out, cam, cfg,
                        torch.zeros(1, dtype=torch.int32, device=out.device))
 

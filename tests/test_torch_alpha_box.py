@@ -1,5 +1,5 @@
-"""The alpha box that K1 and K2 cull with (`composite_sorted.alpha_box`, the
-mirror of csrc/alpha_box.cuh), against the twin's `_chunk_alpha`.
+"""The alpha box that every kernel culls with (`composite_sorted.alpha_box`,
+the mirror of csrc/alpha_box.cuh), against the twin's `_chunk_alpha`.
 
     python -m pytest tests/test_torch_alpha_box.py -q
     EAGS_BOX_EXAMPLES=5000 python -m pytest tests/test_torch_alpha_box.py -q
@@ -9,7 +9,9 @@ outside the box may have nonzero alpha, for any conic, opacity or offset,
 including the hazards of the cull (near-singular and strongly elongated
 conics, opacity just above 1/255 and near 1, radius-capped gaussians, means
 on and just outside patch borders). The seeded test on a map with the chip
-smoke's kernels-map statistics counts the pairs the box keeps.
+smoke's kernels-map statistics counts the pairs the box keeps; the same map
+binned as entries (dup_side 3, K5 / K6's layout) holds the box on entries
+that sit in tiles other than their centre's.
 
 The property test draws a fixed set of 60 examples (derandomized, so a
 failure reproduces); EAGS_BOX_EXAMPLES=N explores N fresh random ones.
@@ -24,7 +26,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from eags_slam_torch.core.camera import Camera
+from eags_slam_torch.ops import composite_entries as ce
 from eags_slam_torch.ops import composite_sorted as cs
+from eags_slam_torch.ops import rasterizer as R
 from eags_slam_torch.ops.rasterizer import (RasterConfig, _sorted_attrs,
                                             _v2_radius_cap, project_gaussians)
 
@@ -167,22 +171,28 @@ def test_box_edge_cases():
 CAM = Camera(fx=600.0, fy=600.0, cx=127.5, cy=63.5, width=256, height=128)
 
 
-def _kernels_map(seed=0, n=6000):
+def _map_proj(cfg, seed=0, n=6000, **kw):
+    """The kernels map's gaussians projected under `cfg`; returns (proj,
+    colours)."""
     rng = np.random.default_rng(seed)
     z = rng.uniform(1.5, 4.0, n)
     x = (rng.uniform(-10.0, CAM.width + 10.0, n) - CAM.cx) * z / CAM.fx
     y = (rng.uniform(-10.0, CAM.height + 10.0, n) - CAM.cy) * z / CAM.fy
     q = rng.normal(size=(n, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    cfg = RasterConfig(tile=32, dup_side=3, seg_cap=1024, bands=3)
     proj = project_gaussians(
         torch.as_tensor(np.stack([x, y, z], 1), dtype=torch.float32),
         torch.as_tensor(q, dtype=torch.float32),
         torch.log(torch.as_tensor(rng.uniform(0.004, 0.02, (n, 3)),
                                   dtype=torch.float32)),
-        torch.zeros((n, 1)), torch.eye(4), CAM, cfg,
-        radius_cap=_v2_radius_cap(cfg))
+        torch.zeros((n, 1)), torch.eye(4), CAM, cfg, **kw)
     colors = torch.as_tensor(rng.uniform(0, 1, (n, 3)), dtype=torch.float32)
+    return proj, colors
+
+
+def _kernels_map(seed=0, n=6000):
+    cfg = RasterConfig(tile=32, dup_side=3, seg_cap=1024, bands=3)
+    proj, colors = _map_proj(cfg, seed, n, radius_cap=_v2_radius_cap(cfg))
     attrs, ss, sc = _sorted_attrs(proj, colors, CAM, cfg)
     return attrs.contiguous(), ss, sc, cfg
 
@@ -275,3 +285,46 @@ def test_smoke_bound_counts_the_boxed_pairs(kernels_map_run):
     assert chip_smoke._ops("K1", w) == (
         chip_smoke.OPS_BOX * w["replayed"] + chip_smoke.OPS_TEST * w["boxed"]
         + chip_smoke.OPS_CONTRIB["K1"] * w["contrib"])
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_box_keeps_every_contributing_pair_on_entry_layout(tile):
+    """K5 / K6 cull with the same box on the entry layout (dup_side 3, the
+    smoke's entries settings): every (pixel, entry) pair of the chunks the
+    twin composites with nonzero alpha lies inside its entry's box, also
+    for the entries a gaussian's radius box duplicated into tiles other
+    than its centre's, which must be among the contributing ones."""
+    cfg = RasterConfig(tile=tile, dup_side=3, entry_cap_factor=4,
+                       max_per_tile=8192, backend="pallas")
+    proj, colors = _map_proj(cfg)
+    slot, pstart, count = R._build_slots(proj, CAM, cfg)
+    entries = R._gather_entries(R._with_sentinel(R._stack_attrs(
+        proj, colors)), slot).contiguous()
+    tiles_x = -(-CAM.width // tile)
+    out = ce.composite_entries_fwd_plain(entries, pstart, count, tile,
+                                         tiles_x)
+    cols, ids = ce._segments(pstart, count)
+    eff = out[:, 6, 0].long()
+    cnt = count.long()
+    pu, pv = cs._pixel_coords(ids, tile, tiles_x)
+    n_contrib = n_dup = 0
+    for ci in range(int(eff.max())):
+        n_valid = torch.where(ci < eff, cnt - ci * cs.CHUNK,
+                              torch.zeros_like(cnt))
+        e = cs._chunk_attrs(entries, cols, ci)
+        alpha = cs._chunk_alpha(e, pu, pv, n_valid)[0]
+        box = cs.alpha_box(e[0], e[1], e[2], e[3], e[4], e[5])
+        inside = ((box[0][:, None] <= pu[:, :, None])
+                  & (box[1][:, None] >= pu[:, :, None])
+                  & (box[2][:, None] <= pv[:, :, None])
+                  & (box[3][:, None] >= pv[:, :, None]))
+        live = alpha > 0
+        assert not bool((live & ~inside).any())
+        # Entries whose mean lies in another tile than the one they sit in.
+        dup = ((torch.div(e[0], tile, rounding_mode="floor")
+                != (ids.long() % tiles_x)[:, None])
+               | (torch.div(e[1], tile, rounding_mode="floor")
+                  != (ids.long() // tiles_x)[:, None]))
+        n_contrib += int(live.sum())
+        n_dup += int((live & dup[:, None, :]).sum())
+    assert n_contrib > 0 and n_dup > 0

@@ -10,7 +10,10 @@ elongated conics, means on and just off patch borders), each with K3 and
 K4 held against K2's twin on the new K1's columns. K3 also runs at runs of
 1, 4 and 8 tiles a cluster on every window and cull case, ids ascending
 and shuffled, and K6 on the cull hazard scene binned as entries and on a
-grid with more tiles than SMs.
+grid with more tiles than SMs. K4 runs on K2's grid and K5 on K1's block
+sizes: K4 at tiles 16 / 32 / 64 on both of K2's block sizes, twice bit for
+bit and against the K2 chain; K5 at the same tiles and block sizes on a
+scene whose tiles stop at the -11.5 threshold, with K6 on its outputs.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -22,7 +25,7 @@ Tolerances (those of chip_smoke.py): colour / alpha 1e-3 absolute, survivor
 counts and columns exact, grads 1e-3 of each row's largest |grad| (the
 kernel sums in another order and adds across tiles with atomics); K4's
 dpose and the K4 path against the K2 chain 1e-3 of the largest |dpose|.
-K6 uses no atomics: two runs are equal bit for bit.
+K4 and K6 use no atomics: two runs are equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -131,18 +134,23 @@ def test_autograd_function_launches_kernels(cuda_device):
 def test_pose_kernel_matches_twin_and_k2_chain(tile, seg_cap, n,
                                                cuda_device):
     """K4 against its twin on K1's residuals (full grid and a shuffled
-    subset), then the K4 path against the K2 + autograd chain on one loss;
-    the K4 path launches K1 and K4 once each and no twin."""
+    subset), twice bit for bit, then the K4 path against the K2 + autograd
+    chain on one loss; the K4 path launches K1 and K4 once each and no
+    twin."""
+    _check_pose_kernel(tile, seg_cap, n, CAM, cuda_device)
+
+
+def _check_pose_kernel(tile, seg_cap, n, cam, cuda_device):
     t = _scene(n, cuda_device, 1)
     cfg = RasterConfig(tile=tile, dup_side=3, seg_cap=seg_cap, bands=3)
     last_w2c = torch.eye(4, device=cuda_device)
     last_w2c[0, 3] = 0.03
     fs = R.freeze_sorted(t["means"], t["q"], t["ls"], t["op"], t["col"],
-                         last_w2c, CAM, cfg)
+                         last_w2c, cam, cfg)
     pv = torch.tensor([0.999, 0.01, -0.02, 0.015, 0.01, -0.02, 0.03],
                       device=cuda_device)
-    tx = -(-CAM.width // tile)
-    num_tiles = tx * -(-CAM.height // tile)
+    tx = -(-cam.width // tile)
+    num_tiles = tx * -(-cam.height // tile)
     gen = torch.Generator(device=cuda_device).manual_seed(tile)
     for ids in (torch.arange(num_tiles, dtype=torch.int32,
                              device=cuda_device),
@@ -151,11 +159,11 @@ def test_pose_kernel_matches_twin_and_k2_chain(tile, seg_cap, n,
                 .to(torch.int32)):
         with torch.no_grad():
             attrs = R._stack_reproj_rows(fs.e3d, R._pose_rel_w2c(pv, last_w2c),
-                                         CAM, cfg).contiguous()
+                                         cam, cfg).contiguous()
             out, cols = cs.composite_sorted_fwd(attrs, fs.seg_start,
                                                 fs.seg_cnt, ids, tile, tx, 3,
                                                 seg_cap)
-            jac = R._pose_jacobian(fs.e3d, pv, last_w2c, CAM, cfg)
+            jac = R._pose_jacobian(fs.e3d, pv, last_w2c, cam, cfg)
         dout = torch.randn(out.shape, generator=gen, device=cuda_device)
         dout[:, 5:] = 0
         gk = cs.pose_grad_sorted(attrs, jac, ids, out, cols, dout, tile, tx)
@@ -175,14 +183,14 @@ def test_pose_kernel_matches_twin_and_k2_chain(tile, seg_cap, n,
         qt = pv.clone().requires_grad_(True)
         cs.reset_counts()
         (d4,) = torch.autograd.grad(loss(R.render_frozen_sorted_tiles_pose(
-            fs, qt, last_w2c, ids, CAM, cfg)), qt)
+            fs, qt, last_w2c, ids, cam, cfg)), qt)
         torch.cuda.synchronize()
         assert cs.counts() == {"fwd_launches": 1, "bwd_launches": 0,
                                "window_launches": 0, "pose_launches": 1,
                                "fwd_twin_calls": 0, "bwd_twin_calls": 0,
                                "window_twin_calls": 0, "pose_twin_calls": 0}
         (d2,) = torch.autograd.grad(loss(R.render_frozen_sorted_tiles(
-            fs, last_w2c @ _rel_matrix(qt[:4], qt[4:]), ids, CAM, cfg)), qt)
+            fs, last_w2c @ _rel_matrix(qt[:4], qt[4:]), ids, cam, cfg)), qt)
         scale = float(d2.abs().max())
         assert float((d4 - d2).abs().max()) <= 1e-3 * scale
 
@@ -568,3 +576,89 @@ def test_entry_kernels_on_hazard_layouts(kind, tile, cuda_device):
     tx = -(-cam.width // tile)
     assert pstart.shape[0] == tx * -(-cam.height // tile)
     _check_entries(entries, pstart, count, tile, tx, cuda_device)
+
+
+# (tile, camera, gaussians) of K4 on K2's grid: one block a tile at tile
+# 16, quadrants at 32 and 64; at tile 32 the 256-thread quadrants when the
+# grid has no more tiles than SMs (CAM2: 48 tiles, and every 1/3 subset
+# below 132 tiles) and the 128-thread ones above (CAM3: 300 tiles).
+K4_GRID_CASES = {
+    "t16_wide": (16, 256, CAM3, 20000),
+    "t32_narrow": (32, 1024, CAM2, 6000),
+    "t32_wide": (32, 1024, CAM3, 20000),
+    "t64_narrow": (64, 1024, CAM2, 6000),
+    "t64_wide": (64, 1024, CAM3, 20000),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_GRID_CASES))
+def test_pose_kernel_on_k2_grid(case, cuda_device):
+    """K4 at tiles 16, 32 and 64 on both of K2's block sizes: against its
+    twin, twice bit for bit, and its path against the K2 + autograd
+    chain."""
+    tile, seg_cap, cam, n = K4_GRID_CASES[case]
+    _check_pose_kernel(tile, seg_cap, n, cam, cuda_device)
+
+
+def _opaque_entries(tile, cam, device, seed=0):
+    """Entries of a scene dense with near-opaque gaussians (sigma 4-8 px,
+    opacity 0.6-0.95, ~0.25 a pixel), so that many tiles stop at the
+    log T <= -11.5 threshold before their last chunk and others run to it."""
+    rng = np.random.default_rng(seed)
+    n = int(0.25 * cam.width * cam.height)
+    sig = rng.uniform(4.0, 8.0, n)
+    aniso = rng.uniform(0.7, 1.0, n)
+    th = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    s2 = sig * aniso
+    cxx = c * c * sig ** 2 + s * s * s2 ** 2
+    cyy = s * s * sig ** 2 + c * c * s2 ** 2
+    cxy = c * s * (sig ** 2 - s2 ** 2)
+    det = cxx * cyy - cxy * cxy
+    # Sparser on the right third of the frame: those tiles do not stop.
+    mu = rng.uniform(-8.0, cam.width + 8.0, n)
+    keep = (mu < 2 * cam.width / 3) | (rng.uniform(size=n) < 0.15)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)[keep],
+                                    device=device)
+    proj = _Projected(
+        mean2d=f32(np.stack([mu, rng.uniform(-8.0, cam.height + 8.0, n)],
+                            1)),
+        conic=f32(np.stack([cyy / det, -cxy / det, cxx / det], 1)),
+        depth=f32(rng.uniform(1.0, 3.0, n)),
+        radius=f32(np.ceil(3.0 * sig)),
+        opacity=f32(rng.uniform(0.6, 0.95, n)))
+    cfg = RasterConfig(tile=tile, dup_side=3, max_per_tile=8192,
+                       backend="pallas")
+    slot, pstart, count = R._build_slots(proj, cam, cfg)
+    entries = R._gather_entries(R._with_sentinel(R._stack_attrs(
+        proj, f32(rng.uniform(0, 1, (n, 3))))), slot).contiguous()
+    return entries, pstart, count, -(-cam.width // tile)
+
+
+# (tile, camera): K5's block sizes, one block a tile of 256 threads at
+# tile 16, 1024 at tile 32 when the grid has no more tiles than SMs (CAM2:
+# 48 tiles), 512 above (CAM3: 300 tiles), 512 at tile 64.
+K5_STOP_CASES = {
+    "t16_wide": (16, CAM2),
+    "t32_narrow": (32, CAM2),
+    "t32_wide": (32, CAM3),
+    "t64_narrow": (64, CAM2),
+    "t64_wide": (64, CAM3),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_STOP_CASES))
+def test_entry_forward_at_the_stop_threshold(case, cuda_device):
+    """K5 on a scene where some tiles stop at the -11.5 threshold before
+    their last chunk and others composite every chunk: against its twin
+    (colour / alpha 1e-3, counts exact, chunks used on at most 0.5% of
+    tiles), and K6 on K5's outputs against its twin, twice bit for bit."""
+    tile, cam = K5_STOP_CASES[case]
+    entries, pstart, count, tx = _opaque_entries(tile, cam, cuda_device)
+    out_k = _check_entries(entries, pstart, count, tile, tx, cuda_device)
+    chunks = (count.long() + 127) // 128
+    eff = out_k[:, 6, 0].long()
+    assert bool((eff < chunks).any()) and bool(((eff == chunks)
+                                                & (chunks > 1)).any())
+    live = out_k[:, 5].amax(1)
+    assert float(live[eff < chunks].max()) <= -11.5 + 1e-4
