@@ -23,9 +23,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 K6 against their twins on the entry layout (dup_side 3,
                 entry_cap_factor 4, max_per_tile 8192), full frame and the
                 frozen binning at a shifted tracking pose, K6 twice bit for
-                bit, both timed on both; max errors against the stated
-                tolerances; median kernel, twin and backward times; each
-                kernel's bound on every timed shape.
+                bit, both timed on both; then K1 and K2 at the loop
+                closer's shape (tile 16 on the 600x340 localisation camera,
+                a 65,536-gaussian map like the closer's subsample, the full
+                836-tile grid and a shuffled 209-tile quarter, both timed);
+                max errors against the stated tolerances; median kernel,
+                twin and backward times; each kernel's bound on every timed
+                shape.
   4. slice    - the port's GaussianSLAM, 12 frames of the bench protocol on
                 the synthetic room with const-speed tracking, the default
                 sorted configuration; K1/K2 launch counts on that run
@@ -51,6 +55,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 on (off by default, as in the reference): every tracking
                 backward through K4, mapping on K2; the same gates, and the
                 default slice's FPS / track / map ms beside them.
+  9. lc       - bench.py's full protocol (`eags_slam_torch.bench`'s
+                make_config(72)): 72 frames of synthetic_hard with loop
+                closure on its own thread and CUDA stream (gs_reg through K1
+                / K2 at tile 16, Gauss-Newton PGO on the host); K1 / K2
+                launches of the main path and of the closer apart (no
+                twin in either), closures, submit / register / PGO ms, the
+                lc_drain stage, FPS, track / map / VO ms beside c2f's and
+                the SLAM loop's track / map ms split by whether a closer
+                pass was in flight, ATE and PSNR, peak memory. Gate: ATE
+                < 5 cm, PSNR > 19 dB, at least one closure, its
+                corrections drained into the live pose array and its
+                submaps' files rewritten.
 Then the kernel summary line (K5 / K6 launches also by layout: render
 binning, frozen tracking binning) and the result line. The card line (from
 the device phase) comes first.
@@ -59,6 +75,7 @@ There is no CPU path: without CUDA the script exits 1 before any result.
 """
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -151,6 +168,7 @@ PER_WALL = 17000
 GROUP = 8
 N_FRAMES = 12
 C2F_FRAMES = 24
+LC_FRAMES = 72
 REPS = 20
 ORBIT_SPEED = 1.0 / 300.0
 BENCH_ORBIT_SPEED = 1.5 / 72.0
@@ -312,11 +330,13 @@ def _median_ms(fn, reps: int):
 
 
 def _kernel_inputs(per_wall: int, n_map: int = 150000, seed: int = 0,
-                   device="cuda"):
+                   device="cuda", cam=None, cfg=None):
     """Main-path shape: a map like the SLAM loop's after its first frame --
     `n_map` gaussians backprojected from a rendered frame of the synthetic
     room (`per_wall` gaussians a wall), 4-20 mm scales, opacity 0.5 --
     projected at a nearby pose and centre-sorted by the port's rasterizer.
+    `cam` / `cfg`: another camera and raster config (default 1200x680,
+    tile 32).
     """
     import numpy as np
     import torch
@@ -327,8 +347,8 @@ def _kernel_inputs(per_wall: int, n_map: int = 150000, seed: int = 0,
                                                 _v2_radius_cap,
                                                 project_gaussians, render)
 
-    cam = Camera(600.0, 600.0, 599.5, 339.5, 1200, 680)
-    cfg = RasterConfig(tile=32, dup_side=3, seg_cap=1024, bands=3)
+    cam = cam or Camera(600.0, 600.0, 599.5, 339.5, 1200, 680)
+    cfg = cfg or RasterConfig(tile=32, dup_side=3, seg_cap=1024, bands=3)
     sc = {k: torch.as_tensor(v, device=device)
           for k, v in room_scene(seed, per_wall).items()}
     poses = orbit_poses(3, 1.5 / 72.0)
@@ -601,19 +621,105 @@ def phase_kernels(per_wall: int, reps: int):
                                          reps, gen)
     ok56, rep56, k56 = _check_entries(cam, gmap, reps, gen)
     summary.update(k56)
-    all_ok &= ok4 and ok56
+    ok_lc, rep_lc, k12_lc = _check_lc_shape(per_wall, reps, gen)
+    for kid, extra in k12_lc.items():
+        summary[kid].update(extra)
+    all_ok &= ok4 and ok56 and ok_lc
     emit({"phase": "kernels", "ok": all_ok, "shape": {
         "H": 680, "W": 1200, "tile": cfg.tile, "bands": cfg.bands,
         "seg_cap": cfg.seg_cap, "group": GROUP, "tiles": T,
         "npad": int(attrs.shape[1]), "scene_gaussians": n_scene,
         "visible_gaussians": n_vis},
         "tolerances": TOL, **results, "k4": rep4, "entries": rep56,
+        "lc_shape": rep_lc,
         "bounds": {k: {f: v[f] for f in ("bound_ms", "bound_by", "bytes",
                                          "ops")}
                    for k, v in summary.items()}})
     if not all_ok:
         raise SystemExit("kernel vs twin check failed")
     return summary
+
+
+# The loop closer's registration renders: the bench camera at localisation
+# level 1 and its raster config (lc/loop_closure.py: tile 16, dup_side 4),
+# on a map of its registration subsample's size; a localisation segment
+# refines on a quarter of the tiles.
+LC_MAP = 1 << 16
+LC_SUBSET_FRAC = 0.25
+
+
+def _check_lc_shape(per_wall: int, reps: int, gen):
+    """K1 and K2 at the loop closer's shape against their twins (the
+    tolerances of the main shape), on the full grid and a shuffled subset,
+    each timed with its bound. Returns (ok, report, {kid: {"lc_full": ...,
+    "lc_subset": ...}})."""
+    import torch
+
+    from eags_slam_torch.core.camera import Camera
+    from eags_slam_torch.ops import composite_sorted as cs
+    from eags_slam_torch.ops.rasterizer import RasterConfig
+
+    cam = Camera(600.0, 600.0, 599.5, 339.5, 1200, 680).scaled(1)
+    cfg = RasterConfig(tile=16, dup_side=4)
+    (attrs, seg_start, seg_cnt, cfg, cam, tiles_x, tiles_y, n_vis, n_map,
+     _) = _kernel_inputs(per_wall, n_map=LC_MAP, seed=1, cam=cam, cfg=cfg)
+    T = tiles_x * tiles_y
+    ids_all = torch.arange(T, dtype=torch.int32, device="cuda")
+    subset = torch.randperm(T, generator=gen, device="cuda")[
+        : round(LC_SUBSET_FRAC * T)].to(torch.int32)
+    rep = {"shape": {"H": cam.height, "W": cam.width, "tile": cfg.tile,
+                     "bands": cfg.bands, "seg_cap": cfg.seg_cap, "tiles": T,
+                     "map_gaussians": n_map, "visible_gaussians": n_vis}}
+    extra = {"K1": {}, "K2": {}}
+    ok = True
+    for label, tile_ids in (("lc_full", ids_all), ("lc_subset", subset)):
+        args = (attrs, seg_start, seg_cnt, tile_ids, cfg.tile, tiles_x,
+                cfg.bands, cfg.seg_cap)
+        out_k, cols_k = cs.composite_sorted_fwd(*args)
+        out_t, cols_t = cs.composite_sorted_fwd_plain(*args)
+        torch.cuda.synchronize()
+        ok_f, rep_f = _compare_fwd(out_k, cols_k, out_t, cols_t)
+        dout = torch.randn(out_t.shape, generator=gen, device="cuda")
+        dout[:, 5:] = 0.0
+        g_k = cs.composite_sorted_bwd(attrs, tile_ids, out_k, cols_k, dout,
+                                      cfg.tile, tiles_x)
+        g_t = cs.composite_sorted_bwd_plain(attrs, tile_ids, out_t, cols_t,
+                                            dout, cfg.tile, tiles_x)
+        torch.cuda.synchronize()
+        ok_b, rep_b, worst = _compare_bwd(g_k, g_t)
+        work = _work(attrs, tile_ids, out_k, cols_k, cfg.tile, tiles_x)
+        k1_bound = _bound(_nbytes(attrs, seg_start, seg_cnt, tile_ids, out_k,
+                                  cols_k), _ops("K1", work))
+        k2_bound = _bound(_nbytes(attrs, tile_ids, out_k, cols_k, dout, g_k),
+                          _ops("K2", work))
+        k1_ms = _median_ms(lambda: cs.composite_sorted_fwd(*args), reps)
+        k2_ms = _median_ms(lambda: cs.composite_sorted_bwd(
+            attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
+        k1_plain = _median_ms(lambda: cs.composite_sorted_fwd_plain(*args),
+                              max(3, reps // 4))
+        k2_plain = _median_ms(lambda: cs.composite_sorted_bwd_plain(
+            attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x),
+            max(3, reps // 4))
+        tiles = int(tile_ids.shape[0])
+        extra["K1"][label] = {
+            "tiles": tiles, "ms": k1_ms, "plain_ms": k1_plain,
+            "bound_ms": k1_bound["bound_ms"],
+            "bound_by": k1_bound["bound_by"],
+            "max_abs_err": max(rep_f[c]["max_abs"] for c in
+                               ("r", "g", "b", "depth", "alpha"))}
+        extra["K2"][label] = {
+            "tiles": tiles, "ms": k2_ms, "plain_ms": k2_plain,
+            "bound_ms": k2_bound["bound_ms"],
+            "bound_by": k2_bound["bound_by"], "max_rel_to_rowmax": worst,
+            "max_abs_err": max(rep_b[c]["max_abs"] for c in rep_b
+                               if isinstance(rep_b[c], dict))}
+        rep[label] = {"fwd_ok": ok_f, "fwd": rep_f, "bwd_ok": ok_b,
+                      "bwd": rep_b, "pairs": work["pairs"],
+                      "boxed_pairs": work["boxed"],
+                      "contributing_pairs": work["contrib"],
+                      "bounds": {"K1": k1_bound, "K2": k2_bound}}
+        ok &= ok_f and ok_b
+    return ok, rep, extra
 
 
 def _track_loss(out):
@@ -864,15 +970,16 @@ def _check_entries(cam, gmap, reps, gen):
 
 
 def _run_slam(config, n_frames: int, out_dir: str, phase: str,
-              rcfg_env: str = ""):
+              rcfg_env: str = "", prepare=None):
     """Drive GaussianSLAM.run on the config with the launch counts set to 0
-    just before and read just after; then the port's evaluator.
-    `rcfg_env`: EAGS_RCFG for this GaussianSLAM (read when it is built)."""
-    import os
-
+    just before and read just after (the main path's, and the loop
+    closer's apart); then the port's evaluator. `rcfg_env`: EAGS_RCFG for
+    this GaussianSLAM (read when it is built); `prepare(gslam)` runs before
+    the counts are zeroed."""
     import torch
 
     from eags_slam_torch.evaluation.evaluator import Evaluator
+    from eags_slam_torch.lc.loop_closure import LC_TAG
     from eags_slam_torch.ops import composite_entries as ce
     from eags_slam_torch.ops import composite_sorted as cs
     from eags_slam_torch.slam.gaussian_slam import GaussianSLAM
@@ -883,6 +990,8 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
     finally:
         del os.environ["EAGS_RCFG"]
     try:
+        if prepare is not None:
+            prepare(gslam)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cs.reset_counts()
@@ -890,6 +999,7 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
         report = gslam.run()
         torch.cuda.synchronize()
         launches = {**cs.counts(), **ce.counts()}
+        launches_lc = {**cs.counts(LC_TAG), **ce.counts(LC_TAG)}
         by_layout = ce.layout_counts()
         peak = torch.cuda.max_memory_allocated()
         results = Evaluator(out_dir, gslam.dataset, config).run()
@@ -897,7 +1007,8 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
     finally:
         gslam.cleanup()
     line = {"phase": phase, "frames": report["frames"],
-            "launches": launches, "launches_by_layout": by_layout,
+            "launches": launches, "launches_lc": launches_lc,
+            "launches_by_layout": by_layout,
             "ate_cm": 100.0 * traj["ate"]["rmse"],
             "ate_aligned_cm": 100.0 * traj["ate_aligned"]["rmse"],
             "rpe_cm": 100.0 * traj["rpe"]["rpe_trans_rmse"],
@@ -910,7 +1021,7 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
             "map_ms": report["map_ms_avg"],
             "peak_mem_gb": peak / 2**30, "tracker": report["tracker"],
             "map_frames": report.get("map_frames")}
-    ok = (all(launches[k] == 0 for k in TWIN_KEYS)
+    ok = (all(launches[k] == 0 and launches_lc[k] == 0 for k in TWIN_KEYS)
           and report["frames"] == n_frames)
     return ok, line, report, gslam
 
@@ -974,6 +1085,96 @@ def phase_c2f(n_frames: int, out_dir: str):
     return line
 
 
+def _closer_overlap(out_dir: str, latencies) -> dict:
+    """The SLAM loop's tracking and mapping ms a frame (log.jsonl), split by
+    whether a loop-closer pass was in flight (its wall-clock span from
+    `t_start` and `total_ms`) while the stage ran."""
+    import numpy as np
+
+    spans = [(e["t_start"], e["t_start"] + e["total_ms"] / 1e3)
+             for e in latencies]
+    split = {(k, b): [] for k in ("track", "map") for b in (True, False)}
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            key = {"tracking": ("track", "track_dispatch_ms"),
+                   "mapping": ("map", "map_ms")}.get(r.get("kind"))
+            if key is None or key[1] not in r:
+                continue
+            t1 = r["t"]
+            t0 = t1 - r[key[1]] / 1e3
+            busy = any(t0 < e and t1 > s for s, e in spans)
+            split[(key[0], busy)].append(r[key[1]])
+    return {f"{k}_ms_closer_{'busy' if b else 'idle'}":
+            {"mean": float(np.mean(v)) if v else None, "frames": len(v)}
+            for (k, b), v in split.items()}
+
+
+def phase_lc(n_frames: int, out_dir: str, c2f_line):
+    """bench.py's full protocol with loop closure on its own thread and
+    stream (`eags_slam_torch.bench.make_config`, no deadline). Gate: the
+    main path launched K1 and K2 and the closer launched K1 and K2 apart,
+    no twin; every frame ran; ATE < 5 cm and PSNR > 19 dB; at least one
+    closure; its corrections drained into the live pose array; the files
+    of the submaps it corrected rewritten (T_prev_m no longer the one saved
+    at the boundary). An exception on the closer's thread fails the run.
+    c2f's track / map ms from the same call print beside."""
+    import numpy as np
+
+    from eags_slam_torch.bench import make_config
+    from eags_slam_torch.slam.submap import Submap
+
+    config = make_config(n_frames, out_dir)
+    config.pop("bench_deadline_ts")
+    saved = {}
+
+    def snapshot_at_submit(gslam):
+        closer = gslam.loop_closer
+        submit = closer.submit
+
+        def submit_and_snapshot(submap_id, frame_id, c2ws):
+            path = os.path.join(out_dir, "submaps", f"{submap_id:06d}.npz")
+            saved[submap_id] = Submap.load(path).T_prev_m
+            return submit(submap_id, frame_id, c2ws)
+
+        closer.submit = submit_and_snapshot
+
+    ok, line, report, gslam = _run_slam(config, n_frames, out_dir, "lc",
+                                        prepare=snapshot_at_submit)
+    lc = report["lc"]
+    rewritten = sorted(
+        sid for sid, T in saved.items() if not np.allclose(
+            Submap.load(os.path.join(out_dir, "submaps",
+                                     f"{sid:06d}.npz")).T_prev_m, T,
+            atol=1e-9))
+    la, ll = line["launches"], line["launches_lc"]
+    ok &= (la["fwd_launches"] > 0 and la["bwd_launches"] > 0
+           and ll["fwd_launches"] > 0 and ll["bwd_launches"] > 0
+           and lc["n_closures"] >= 1 and lc["corrections_applied"] > 0
+           and len(rewritten) > 0
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0)
+    lat = [{k: v for k, v in entry.items()
+            if k in ("submap_id", "n_matches", "detect_ms", "register_ms",
+                     "register_phases", "pgo_solve_ms", "pgo_ms",
+                     "total_ms")} for entry in lc["latencies"]]
+    emit({**line, "ok": ok, "vo_ms": report["vo"]["mean_track_ms"],
+          "n_submits": lc["n_submits"], "n_closures": lc["n_closures"],
+          "submit_ms_mean": lc["submit_ms_mean"],
+          "submit_ms_max": lc["submit_ms_max"],
+          "register_ms_mean": lc["register_ms_mean"],
+          "pgo_solve_ms": [e["pgo_solve_ms"] for e in lc["latencies"]
+                           if "pgo_solve_ms" in e],
+          "lc_drain_s": report["stage_totals_s"]["lc_drain"],
+          "corrections_applied": lc["corrections_applied"],
+          "submaps_rewritten": rewritten, "latencies": lat,
+          "main_loop_vs_closer": _closer_overlap(out_dir, lc["latencies"]),
+          "c2f_same_call": None if c2f_line is None else {
+              k: c2f_line[k] for k in ("fps", "track_ms", "map_ms")}})
+    if not ok:
+        raise SystemExit("lc check failed")
+    return line
+
+
 def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
     """The slice's protocol on the entry-binned backend (EAGS_RCFG=
     backend=pallas for this run): candidate scoring, frozen-binning
@@ -1004,8 +1205,8 @@ def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
-                   default="device,build,kernels,slice,window,c2f,entries,"
-                   "slice_k4")
+                   default="device,build,kernels,slice,window,c2f,lc,"
+                   "entries,slice_k4")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -1029,8 +1230,12 @@ def main():
     if "window" in phases:
         runs.append(phase_slice(PER_WALL, N_FRAMES, args.out + "_window",
                                 window=True, slice_line=slice_line))
+    c2f_line = None
     if "c2f" in phases:
-        runs.append(phase_c2f(C2F_FRAMES, args.out + "_c2f"))
+        c2f_line = phase_c2f(C2F_FRAMES, args.out + "_c2f")
+        runs.append(c2f_line)
+    if "lc" in phases:
+        runs.append(phase_lc(LC_FRAMES, args.out + "_lc", c2f_line))
     if "entries" in phases:
         runs.append(phase_entries(PER_WALL, N_FRAMES, args.out + "_entries",
                                   slice_line))
@@ -1044,12 +1249,16 @@ def main():
              "replaces": REPLACES[kid],
              "launches": sum(r["launches"][lkey] for r in runs)
              if runs else None,
+             # The loop closer's launches, counted apart (lc phase).
+             "launches_lc": sum(r["launches_lc"][lkey] for r in runs)
+             if runs else None,
              "max_abs_err": s.get("max_abs_err"),
              "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
              "bound_ms": s.get("bound_ms"),
              "bound_by": s.get("bound_by"), "library_ms": None,
              **{f: s[f] for f in ("run", "subset", "polish", "full",
-                                  "frozen") if f in s}}
+                                  "frozen", "lc_full", "lc_subset")
+                if f in s}}
         if kid in ("K5", "K6") and runs:
             # K5 / K6 run on two layouts: the render binning and the
             # tracker's frozen binning.

@@ -1,5 +1,6 @@
-"""Quaternion and SE(3) math (port of eags_slam_tpu.core.se3, the part the
-main path uses). Quaternions are wxyz, unit norm."""
+"""Quaternion and SE(3) math (port of eags_slam_tpu.core.se3): the
+quaternion algebra, the SO(3) / SE(3) exponential and logarithm, and the
+rotation averaging of loop closure. Quaternions are wxyz, unit norm."""
 from __future__ import annotations
 
 import torch
@@ -157,3 +158,72 @@ def mat_inverse(T: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     R, t = T[..., :3, :3], T[..., :3, 3]
     return torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by unit quaternions q (..., 4)."""
+    return torch.einsum("...ij,...j->...i", quat_to_rotmat(q), v)
+
+
+def so3_log(R: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3).
+
+    cos(theta) is clipped strictly inside (-1, 1) and theta / (2 sin theta)
+    is taken as 0.5 / sinc(theta / pi), so that the gradient stays finite
+    at the identity (a Gauss-Newton jacobian goes through exactly-zero
+    residuals). Near theta = pi the formula degrades."""
+    cos_theta = torch.clamp(
+        (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0) / 2.0,
+        -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(cos_theta)
+    w_hat = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                         R[..., 0, 2] - R[..., 2, 0],
+                         R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    scale = 0.5 / torch.sinc(theta / torch.pi)
+    return scale[..., None] * w_hat
+
+
+def se3_log(T: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Homogeneous (..., 4, 4) -> twist (..., 6) [rho, phi]."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    phi = so3_log(R, eps)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small = theta2 <= eps
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta_safe = torch.sqrt(theta2_safe)
+    W = skew(phi)
+    WW = W @ W
+    half = theta_safe / 2.0
+    cot = torch.where(
+        small, torch.full_like(theta2, 1.0 / 12.0),
+        (1.0 - half * torch.cos(half) / (torch.sin(half) + eps))
+        / theta2_safe)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
+    Vinv = eye - 0.5 * W + cot[..., None, None] * WW
+    rho = torch.einsum("...ij,...j->...i", Vinv, t)
+    return torch.cat([rho, phi], dim=-1)
+
+
+def const_speed_extrapolate(T_prev2: torch.Tensor,
+                            T_prev1: torch.Tensor) -> torch.Tensor:
+    """Constant-velocity pose prediction T1 @ T0^-1 @ T1."""
+    return T_prev1 @ mat_inverse(T_prev2) @ T_prev1
+
+
+def special_procrustes(M: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) onto SO(3) through the SVD, the sign of
+    det(U V^T) on D[2, 2]."""
+    U, _, Vt = torch.linalg.svd(M)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.zeros_like(M)
+    D[..., 0, 0] = 1.0
+    D[..., 1, 1] = 1.0
+    D[..., 2, 2] = det
+    return U @ D @ Vt
+
+
+def rotation_average(Rs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted chordal-L2 rotation mean: the procrustes of the weighted
+    sum of (..., K, 3, 3) rotations."""
+    M = torch.sum(Rs * weights[..., None, None], dim=-3)
+    return special_procrustes(M)

@@ -4,15 +4,18 @@
 Loads `estimated_c2w.npz` and `submaps/*.npz`, restores each submap into the
 world frame along the `T_prev_m` chain, renders its keyframes at their
 estimated poses, exposure-compensated, and reports PSNR / SSIM / MS-SSIM /
-depth-L1 into `rendering_metrics.json`, beside the trajectory's `ate.json`.
-The mesh and global-map stages (`evaluation.eval_mesh`, `eval_global`) and
-`evaluation.save_render` are not ported and raise; LPIPS needs pretrained
-weights the repo does not ship, as in the JAX package.
+depth-L1 into `rendering_metrics.json`, beside the trajectory's `ate.json`;
+with `evaluation.save_render` it also writes each keyframe's clipped render
+as `eval_render/<frame>.png`. The mesh and global-map stages
+(`evaluation.eval_mesh`, `eval_global`) are not ported and raise; LPIPS
+needs pretrained weights the repo does not ship, as in the JAX package.
 """
 from __future__ import annotations
 
 import json
 import os
+import struct
+import zlib
 from glob import glob
 from typing import Dict
 
@@ -35,10 +38,22 @@ def check_config(config: Dict) -> None:
                 f"evaluation.{key}: the mesh / global-map evaluation is not "
                 "ported (ROADMAP Queue 1 item 11); run with --no_eval or "
                 "turn it off")
-    if ev.get("save_render", False):
-        raise NotImplementedError(
-            "evaluation.save_render: writing the evaluation renders is not "
-            "ported (ROADMAP Queue 1 item 8)")
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG file (zlib, no filter)."""
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
 
 
 class Evaluator:
@@ -64,6 +79,11 @@ class Evaluator:
     def run_rendering_eval(self) -> Dict:
         dev = self.dataset.device
         psnrs, ssims, ms_ssims, depth_l1s = [], [], [], []
+        save_render = bool(self.config.get("evaluation", {}).get(
+            "save_render", False))
+        render_dir = os.path.join(self.output_path, "eval_render")
+        if save_render:
+            os.makedirs(render_dir, exist_ok=True)
         Twm_chain = np.eye(4)
         paths = sorted(glob(os.path.join(self.output_path, "submaps",
                                          "*.npz")))
@@ -92,6 +112,9 @@ class Evaluator:
                 mask = gt_depth > 0
                 dl1 = torch.abs(out.depth - gt_depth)[mask]
                 depth_l1s.append(float(dl1.mean()) if dl1.numel() else 0.0)
+                if save_render:
+                    write_png(os.path.join(render_dir, f"{int(fid):05d}.png"),
+                              (img.cpu().numpy() * 255).astype(np.uint8))
         res = {
             "mean_psnr": float(np.mean(psnrs)) if psnrs else 0.0,
             "mean_ssim": float(np.mean(ssims)) if ssims else 0.0,

@@ -1,5 +1,6 @@
 """Global image descriptor for place recognition (port of
-`eags_slam_tpu.lc.descriptor.global_descriptor`): a training-free
+`eags_slam_tpu.lc.descriptor`): `GlobalDesc`, NetVLAD when its weights are
+present (`lc/netvlad.py`), else `global_descriptor`, a training-free
 GIST/HOG-style vector (8-bin Sobel orientation histograms on an 8x8 grid,
 mean colour and gray on the same grid, a 4x4 luminance layout), each block
 mean-centred, padded to `dim` and L2-normalised. Computed for every mapped
@@ -81,3 +82,26 @@ def global_descriptor(rgb: torch.Tensor, dim: int = 1024) -> torch.Tensor:
     else:
         feats = feats[:dim]
     return feats / torch.clamp(torch.linalg.norm(feats), min=1e-6)
+
+
+class GlobalDesc:
+    """The loop closer's descriptor: VGG16 + NetVLAD when
+    `weights/netvlad.npz` is present (the reference's hloc NetVLAD,
+    4096-d), else the HOG stand-in above (1024-d). Both are unit vectors
+    compared by dot product. Images are described on `device`."""
+
+    def __init__(self, dim: int = 1024, device="cpu"):
+        from . import netvlad
+
+        self.device = torch.device(device)
+        self._net = netvlad.load() is not None
+        self.dim = 4096 if self._net else dim
+
+    def __call__(self, rgb) -> torch.Tensor:
+        """rgb (H, W, 3) in [0, 1], numpy or tensor -> (dim,) tensor."""
+        if self._net:
+            from . import netvlad
+
+            return netvlad.describe(rgb, device=self.device)
+        rgb = torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
+        return global_descriptor(rgb, self.dim)

@@ -33,47 +33,43 @@ contiguous column range.
 
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel (built from `csrc/` with the other kernels, at first use) or raises.
-`entries_fwd_launches` / `entries_bwd_launches` count kernel launches,
-`entries_fwd_twin_calls` / `entries_bwd_twin_calls` twin calls;
-`layout_counts` splits the launches by the layout the caller names (the
-render binning, or the tracker's frozen binning).
+`counts()` holds the kernel launches (`entries_fwd_launches`,
+`entries_bwd_launches`) and twin calls (`entries_fwd_twin_calls`,
+`entries_bwd_twin_calls`); `layout_counts` splits the launches by the
+layout the caller names (the render binning, or the tracker's frozen
+binning). Both keep work tagged by `composite_sorted.counting_as` apart.
 """
 from __future__ import annotations
 
 import torch
 
-from .composite_sorted import (NCH, OUT_CH, _check, _composite_cols,
-                               _cuda_check, _replay_grads, load_kernels)
+from .composite_sorted import (MAIN, NCH, OUT_CH, LaunchCounts, _check,
+                               _composite_cols, _cuda_check, _replay_grads,
+                               load_kernels)
 
-entries_fwd_launches = 0
-entries_bwd_launches = 0
-entries_fwd_twin_calls = 0
-entries_bwd_twin_calls = 0
 LAYOUTS = ("render", "frozen")
-# Launches by layout: {layout: [K5, K6]}.
-layout_launches = {k: [0, 0] for k in LAYOUTS}
+_counts = LaunchCounts(("entries_fwd_launches", "entries_bwd_launches",
+                        "entries_fwd_twin_calls", "entries_bwd_twin_calls"))
+# Launches by layout, keys "K5.render", "K6.frozen", ...
+_layouts = LaunchCounts(f"{k}.{lay}" for k in ("K5", "K6")
+                        for lay in LAYOUTS)
 
 
 def reset_counts() -> None:
-    global entries_fwd_launches, entries_bwd_launches
-    global entries_fwd_twin_calls, entries_bwd_twin_calls
-    entries_fwd_launches = entries_bwd_launches = 0
-    entries_fwd_twin_calls = entries_bwd_twin_calls = 0
-    for v in layout_launches.values():
-        v[:] = [0, 0]
+    _counts.reset()
+    _layouts.reset()
 
 
-def layout_counts() -> dict:
+def counts(tag: str = MAIN) -> dict:
+    """Kernel launches and twin calls counted under `tag`."""
+    return _counts.get(tag)
+
+
+def layout_counts(tag: str = MAIN) -> dict:
     """Kernel launches by layout: {"K5": {layout: n}, "K6": {layout: n}}."""
-    return {kid: {k: v[i] for k, v in layout_launches.items()}
-            for i, kid in enumerate(("K5", "K6"))}
-
-
-def counts() -> dict:
-    return {"entries_fwd_launches": entries_fwd_launches,
-            "entries_bwd_launches": entries_bwd_launches,
-            "entries_fwd_twin_calls": entries_fwd_twin_calls,
-            "entries_bwd_twin_calls": entries_bwd_twin_calls}
+    c = _layouts.get(tag)
+    return {kid: {lay: c[f"{kid}.{lay}"] for lay in LAYOUTS}
+            for kid in ("K5", "K6")}
 
 
 def _segments(start, count):
@@ -92,8 +88,7 @@ def _segments(start, count):
 def composite_entries_fwd_plain(entries, start, count, tile: int,
                                 tiles_x: int):
     """Plain PyTorch twin of K5. Returns out (T, 8, PX)."""
-    global entries_fwd_twin_calls
-    entries_fwd_twin_calls += 1
+    _counts.bump("entries_fwd_twin_calls", entries.device)
     cols, tile_ids = _segments(start, count)
     return _composite_cols(entries, cols, count.long(), tile_ids, tile,
                            tiles_x)
@@ -104,8 +99,7 @@ def composite_entries_bwd_plain(entries, start, count, out, dout, tile: int,
                                 tiles_x: int):
     """Plain PyTorch twin of K6: the reverse replay of the chunks K5 used.
     Returns grads (16, Epad), zero in the columns K5 did not composite."""
-    global entries_bwd_twin_calls
-    entries_bwd_twin_calls += 1
+    _counts.bump("entries_bwd_twin_calls", entries.device)
     cols, tile_ids = _segments(start, count)
     return _replay_grads(entries, tile_ids, out, cols, dout, tile, tiles_x)
 
@@ -131,7 +125,6 @@ def composite_entries_fwd(entries, start, count, tile: int, tiles_x: int,
     if entries.device.type != "cuda":
         raise RuntimeError(f"composite_entries: no kernel for device "
                            f"{entries.device}")
-    global entries_fwd_launches
     lib = load_kernels()
     _check_args(entries, start, count, layout)
     if tile not in (16, 32, 64):
@@ -146,8 +139,8 @@ def composite_entries_fwd(entries, start, count, tile: int, tiles_x: int,
         count.data_ptr(), t, tile, tiles_x, out.data_ptr(),
         torch.cuda.current_stream(entries.device).cuda_stream)
     _cuda_check(err, "K5 launch")
-    entries_fwd_launches += 1
-    layout_launches[layout][0] += 1
+    _counts.bump("entries_fwd_launches", entries.device)
+    _layouts.bump(f"K5.{layout}", entries.device)
     return out
 
 
@@ -162,7 +155,6 @@ def composite_entries_bwd(entries, start, count, out, dout, tile: int,
     if entries.device.type != "cuda":
         raise RuntimeError(f"composite_entries: no kernel for device "
                            f"{entries.device}")
-    global entries_bwd_launches
     lib = load_kernels()
     _check_args(entries, start, count, layout)
     _check(out, "out", torch.float32, 3)
@@ -176,8 +168,8 @@ def composite_entries_bwd(entries, start, count, out, dout, tile: int,
         tiles_x, out.data_ptr(), dout.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(entries.device).cuda_stream)
     _cuda_check(err, "K6 launch")
-    entries_bwd_launches += 1
-    layout_launches[layout][1] += 1
+    _counts.bump("entries_bwd_launches", entries.device)
+    _layouts.bump(f"K6.{layout}", entries.device)
     return grads
 
 

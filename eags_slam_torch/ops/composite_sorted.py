@@ -50,19 +50,24 @@ Semantics (identical in kernel and twin):
 
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel (built from `csrc/` at first use) or raises. There is no other
-fallback. `fwd_launches` / `bwd_launches` / `window_launches` /
-`pose_launches` count kernel launches; `fwd_twin_calls` / `bwd_twin_calls`
-/ `window_twin_calls` / `pose_twin_calls` count twin calls (a K3 call on
-CPU tensors runs K2's twin and counts as `window_twin_calls`).
+fallback. `counts()` holds the kernel launches (`fwd_launches`,
+`bwd_launches`, `window_launches`, `pose_launches`) and the twin calls
+(`fwd_twin_calls`, `bwd_twin_calls`, `window_twin_calls`,
+`pose_twin_calls`; a K3 call on CPU tensors runs K2's twin and counts as
+`window_twin_calls`) of the main path. Work that runs beside it (the loop
+closer, on its own CUDA stream and thread) counts apart under a tag
+(`counting_as`, `counts(tag)`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -82,33 +87,82 @@ GROWS = (0, 1, 2, 3, 4, 9)   # attr rows matching the PJ jacobian channels
 
 MAX_BANDS = 8
 
-fwd_launches = 0
-bwd_launches = 0
-window_launches = 0
-pose_launches = 0
 last_window_run = 0          # the run K3's last launch took
-fwd_twin_calls = 0
-bwd_twin_calls = 0
-window_twin_calls = 0
-pose_twin_calls = 0
+
+# ---------------------------------------------------------------------------
+# Launch counts, kept apart by tag
+# ---------------------------------------------------------------------------
+
+MAIN = "main"
+_count_lock = threading.Lock()
+_stream_tags = {}            # CUDA stream handle -> tag
+_local = threading.local()   # .tag: this thread's tag (CPU twins)
+
+
+def count_tag(device: torch.device) -> str:
+    """The tag a launch on `device` counts under: the current CUDA stream's
+    (a backward runs on its forward's stream, in the autograd engine's
+    thread) on the card, this thread's on the CPU, else MAIN."""
+    if device.type == "cuda":
+        tag = _stream_tags.get(torch.cuda.current_stream(device).cuda_stream)
+    else:
+        tag = getattr(_local, "tag", None)
+    return MAIN if tag is None else tag
+
+
+@contextlib.contextmanager
+def counting_as(tag: str, stream=None):
+    """Count the launches made on `stream` and the twin calls of this
+    thread under `tag`, apart from the main path's counts."""
+    prev = getattr(_local, "tag", None)
+    _local.tag = tag
+    if stream is not None:
+        _stream_tags[stream.cuda_stream] = tag
+    try:
+        yield
+    finally:
+        _local.tag = prev
+        if stream is not None:
+            _stream_tags.pop(stream.cuda_stream, None)
+
+
+class LaunchCounts:
+    """Counters of `keys`, one set per tag."""
+
+    def __init__(self, keys):
+        self.keys = tuple(keys)
+        self._by_tag = {}
+
+    def reset(self) -> None:
+        with _count_lock:
+            self._by_tag = {}
+
+    def bump(self, key: str, device: torch.device) -> None:
+        tag = count_tag(device)
+        with _count_lock:
+            d = self._by_tag.setdefault(tag, dict.fromkeys(self.keys, 0))
+            d[key] += 1
+
+    def get(self, tag: str = MAIN) -> dict:
+        with _count_lock:
+            return dict(self._by_tag.get(tag)
+                        or dict.fromkeys(self.keys, 0))
+
+
+_counts = LaunchCounts((
+    "fwd_launches", "bwd_launches", "window_launches", "pose_launches",
+    "fwd_twin_calls", "bwd_twin_calls", "window_twin_calls",
+    "pose_twin_calls"))
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches, window_launches, pose_launches
-    global fwd_twin_calls, bwd_twin_calls, window_twin_calls, pose_twin_calls
-    fwd_launches = bwd_launches = window_launches = pose_launches = 0
-    fwd_twin_calls = bwd_twin_calls = window_twin_calls = 0
-    pose_twin_calls = 0
+    """Zero every tag's counts."""
+    _counts.reset()
 
 
-def counts() -> dict:
-    return {"fwd_launches": fwd_launches, "bwd_launches": bwd_launches,
-            "window_launches": window_launches,
-            "pose_launches": pose_launches,
-            "fwd_twin_calls": fwd_twin_calls,
-            "bwd_twin_calls": bwd_twin_calls,
-            "window_twin_calls": window_twin_calls,
-            "pose_twin_calls": pose_twin_calls}
+def counts(tag: str = MAIN) -> dict:
+    """Kernel launches and twin calls counted under `tag`."""
+    return _counts.get(tag)
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +290,7 @@ def composite_sorted_fwd_plain(attrs, seg_start, seg_cnt, tile_ids,
                                tile: int, tiles_x: int, bands: int,
                                seg_cap: int):
     """Plain PyTorch twin of K1. Returns (out (S, 8, PX), cols (S, capt))."""
-    global fwd_twin_calls
-    fwd_twin_calls += 1
+    _counts.bump("fwd_twin_calls", attrs.device)
     cols, n_surv = _survivors(attrs, seg_start, seg_cnt, tile_ids, tile,
                               tiles_x, bands, seg_cap)
     return _composite_cols(attrs, cols, n_surv, tile_ids, tile,
@@ -284,8 +337,7 @@ def composite_sorted_bwd_plain(attrs, tile_ids, out, cols, dout, tile: int,
                                tiles_x: int):
     """Plain PyTorch twin of K2: the analytic reverse chunk replay of
     `_replay_chunks`. Returns grads (16, Npad)."""
-    global bwd_twin_calls
-    bwd_twin_calls += 1
+    _counts.bump("bwd_twin_calls", attrs.device)
     return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
 
 
@@ -294,8 +346,7 @@ def pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols, dout, tile: int,
                            tiles_x: int):
     """Plain PyTorch twin of K4: K2's replay grads, rows GROWS, contracted
     with the pose jacobian. Returns dpose (7,)."""
-    global pose_twin_calls
-    pose_twin_calls += 1
+    _counts.bump("pose_twin_calls", attrs.device)
     g = _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
     gsel = g[list(GROWS)]                                # (6, Npad)
     return (jac[: 7 * PJ].reshape(7, PJ, -1) * gsel[None]).sum((1, 2))
@@ -437,8 +488,19 @@ def build_kernels(verbose: bool = False) -> Path:
     return lib
 
 
+_load_lock = threading.Lock()
+
+
 def load_kernels(verbose: bool = False):
-    """Build (first use) and bind the kernels. Raises without a CUDA device."""
+    """Build (first use) and bind the kernels, once across threads. Raises
+    without a CUDA device."""
+    if _LIB is not None:
+        return _LIB
+    with _load_lock:
+        return _load_kernels(verbose)
+
+
+def _load_kernels(verbose: bool):
     global _LIB
     if _LIB is not None:
         return _LIB
@@ -489,7 +551,6 @@ def composite_sorted_fwd(attrs, seg_start, seg_cnt, tile_ids, tile: int,
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
-    global fwd_launches
     lib = load_kernels()
     capt = bands * seg_cap
     if capt > MAX_CAPT or tile not in (16, 32, 64):
@@ -513,7 +574,7 @@ def composite_sorted_fwd(attrs, seg_start, seg_cnt, tile_ids, tile: int,
         seg_cap, out.data_ptr(), cols.data_ptr(),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K1 launch")
-    fwd_launches += 1
+    _counts.bump("fwd_launches", attrs.device)
     return out, cols
 
 
@@ -528,7 +589,6 @@ def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
-    global bwd_launches
     lib = load_kernels()
     for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
                              (tile_ids, "tile_ids", torch.int32, 1),
@@ -546,7 +606,7 @@ def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
         dout.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K2 launch")
-    bwd_launches += 1
+    _counts.bump("bwd_launches", attrs.device)
     return grads
 
 
@@ -567,13 +627,11 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
     Returns grads (16, Npad) f32 (lanes leave a cluster through global
     atomicAdd: the last bits vary from run to run)."""
     if attrs.device.type == "cpu":
-        global window_twin_calls
-        window_twin_calls += 1
+        _counts.bump("window_twin_calls", attrs.device)
         return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
-    global window_launches
     lib = load_kernels()
     for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
                              (seg_start, "seg_start", torch.int32, 2),
@@ -599,7 +657,7 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
         out.data_ptr(), cols.data_ptr(), dout.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K3 launch")
-    window_launches += 1
+    _counts.bump("window_launches", attrs.device)
     return grads
 
 
@@ -623,7 +681,6 @@ def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
     if attrs.device.type != "cuda":
         raise RuntimeError(f"pose_grad_sorted: no kernel for device "
                            f"{attrs.device}")
-    global pose_launches
     lib = load_kernels()
     for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
                              (jac, "jac", torch.float32, 2),
@@ -648,7 +705,7 @@ def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
         dout.data_ptr(), part.data_ptr(),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K4 launch")
-    pose_launches += 1
+    _counts.bump("pose_launches", attrs.device)
     return part.sum(0)[:7]
 
 

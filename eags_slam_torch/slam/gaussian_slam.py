@@ -23,8 +23,16 @@ RasterConfig overrides, e.g. `backend=pallas`) says otherwise; the
 (non-resident) loop. `mapping.rmw_window` or `EAGS_RMW_WINDOW=1` routes the
 sorted backward through K3.
 
+With `lc.enabled`, each saved submap (and, with `lc.final`, the last one)
+is submitted to the loop closer, which runs beside the loop on its own
+thread and CUDA stream (`lc/loop_closure.py`); after every frame the loop
+re-raises the closer's errors and applies its drained corrections to the
+live pose array (timed as the `lc_drain` stage). The loop syncs only its
+own stream. `bench_deadline_ts` (a wall-clock time) stops the loop
+cleanly between frames.
+
 Not ported yet, each raising NotImplementedError when a config selects it:
-loop closure (`lc.enabled`), the device mesh (`use_mesh`, `force_mesh`,
+the device mesh (`use_mesh`, `force_mesh`,
 `sp_track`), the half-resolution submap init (`init_halfres_frac > 0`), the
 mapper's per-iteration tile subset (`tile_subset > 0`), the dense `jnp`
 backend, the K1 `kernel_bf16` / `kernel_quadform` options and a VO pinned
@@ -67,9 +75,6 @@ def exceeds_motion_thresholds(c2w: np.ndarray, anchor_c2w: np.ndarray,
 
 def _check_slice(config: Dict) -> None:
     tc = config["tracking"]
-    if config.get("lc", {}).get("enabled", False):
-        raise NotImplementedError(
-            "lc.enabled: loop closure is not ported (ROADMAP Queue 1 item 10)")
     if (config.get("use_mesh", False) or config.get("force_mesh", False)
             or tc.get("sp_track", False)):
         raise NotImplementedError(
@@ -193,6 +198,16 @@ class GaussianSLAM:
             self.odometer = EdgeVO(VOConfig.from_dict(vo_cfg),
                                    self.dataset.full_camera)
 
+        self.loop_closer = None
+        self._lc_ranges_applied = 0
+        self.lc_final = bool(config.get("lc", {}).get("final", True))
+        if config.get("lc", {}).get("enabled", False):
+            from ..lc.loop_closure import LoopClosure
+
+            self.loop_closer = LoopClosure(config, self.output_path,
+                                           self.cam, self.dataset,
+                                           device=self.device)
+
         n = len(self.dataset)
         self.estimated_c2ws = np.tile(np.eye(4), (n, 1, 1))
         self.exposures_ab = np.zeros((n, 2))
@@ -210,7 +225,7 @@ class GaussianSLAM:
         self.submap_paths: List[str] = []
         self.track_times: List[float] = []
         self.map_times: List[float] = []
-        self.stage_s: Dict[str, float] = {"boundary": 0.0}
+        self.stage_s: Dict[str, float] = {"boundary": 0.0, "lc_drain": 0.0}
 
     # ------------------------------------------------------------------
     def _setup_output_path(self):
@@ -252,8 +267,9 @@ class GaussianSLAM:
         return gen
 
     def _sync(self):
+        """Wait for this thread's stream (not the loop closer's)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _w2c32(self, c2w):
         return torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
@@ -406,11 +422,29 @@ class GaussianSLAM:
         return {"n_added": int(n_added), "n_alive": self._n_alive,
                 "final_loss": float(losses[-1, 0])}
 
+    def _apply_lc_corrections(self):
+        """Left-multiply the drained correction ranges into the live pose
+        array (an open end covers the frames tracked since the submit)."""
+        corrs = self.loop_closer.drain_corrections()
+        if not corrs:
+            return
+        for start, end, corr in corrs:
+            e = len(self.estimated_c2ws) if end is None else end
+            self.estimated_c2ws[start:e] = corr @ self.estimated_c2ws[start:e]
+        self._lc_ranges_applied += len(corrs)
+
     # ------------------------------------------------------------------
     def run(self) -> Dict:
         n = len(self.dataset)
         t0 = time.perf_counter()
+        deadline_ts = float(self.config.get("bench_deadline_ts", 0) or 0)
+        frames_run = n
         for frame_id in range(n):
+            if deadline_ts and time.time() > deadline_ts:
+                print(f"deadline: stopping cleanly after {frame_id}/{n} "
+                      "frames", flush=True)
+                frames_run = frame_id
+                break
             gt_color, gt_depth = self.dataset.frame(frame_id)
             gt_pose = np.asarray(self.dataset.poses[frame_id], np.float64)
             t_track = time.perf_counter()
@@ -457,7 +491,10 @@ class GaussianSLAM:
             is_new_submap = False
             if frame_id != 0 and self.should_start_new_submap(frame_id):
                 t_b = time.perf_counter()
-                self.save_current_submap()
+                path = self.save_current_submap()
+                if self.loop_closer is not None and path is not None:
+                    self.loop_closer.submit(self.submap_id, frame_id,
+                                            self.estimated_c2ws)
                 self.start_new_submap(frame_id)
                 is_new_submap = True
                 self.stage_s["boundary"] += time.perf_counter() - t_b
@@ -472,13 +509,25 @@ class GaussianSLAM:
                 stats["is_new"] = bool(is_new_submap or frame_id == 0)
                 self.logger.log_mapping(frame_id, stats)
 
-        self.save_current_submap()
+            if self.loop_closer is not None:
+                t_d = time.perf_counter()
+                self.loop_closer.check_futures()
+                self._apply_lc_corrections()
+                self.stage_s["lc_drain"] += time.perf_counter() - t_d
+
+        path = self.save_current_submap()
+        if self.loop_closer is not None:
+            if path is not None and self.lc_final:
+                self.loop_closer.submit(self.submap_id, frames_run - 1,
+                                        self.estimated_c2ws)
+            self.loop_closer.finalize()
+            self._apply_lc_corrections()
         total = time.perf_counter() - t0
         np.savez(os.path.join(self.output_path, "estimated_c2w.npz"),
                  c2ws=self.estimated_c2ws, exposures=self.exposures_ab)
         report = {
-            "frames": n,
-            "fps": n / total,
+            "frames": frames_run,
+            "fps": frames_run / total,
             "total_s": total,
             "track_ms_avg": 1e3 * float(np.mean(self.track_times)),
             "map_ms_avg": 1e3 * float(np.mean(self.map_times))
@@ -496,9 +545,14 @@ class GaussianSLAM:
             self.odometer.dump_tum(
                 os.path.join(self.output_path, "vo_traj_tum.txt"),
                 self.dataset.timestamps)
+        if self.loop_closer is not None:
+            report["lc"] = {**self.loop_closer.report(),
+                            "corrections_applied": self._lc_ranges_applied}
         self.logger.log("report", report)
         return report
 
     def cleanup(self):
+        if self.loop_closer is not None:
+            self.loop_closer.shutdown()
         self.dataset.close()
         self.logger.close()

@@ -253,6 +253,21 @@ def _refine(loss_fn, init_rel, num_iters: int, exposure0,
     return rel, best_pose["exposure"], stats, (adam, plateau)
 
 
+def refine_pose(params: GaussianParams, alive, init_rel, last_w2c, gt_color,
+                gt_depth, num_iters: int, exposure0, cam: Camera,
+                rcfg: RasterConfig, tcfg: TrackerConfig):
+    """Optimise the relative pose on the full image; returns (rel_best
+    4x4, exposure (2,), stats (5,) np.float32 of STAT_NAMES). Loop
+    closure's viewpoint localisation runs it with `frozen_binning` off,
+    which re-bins at every step."""
+    colors = sh_to_rgb(params.f_dc)
+    loss_fn = _make_loss_fn(params, alive, colors, init_rel, last_w2c,
+                            gt_color, gt_depth, cam, rcfg, tcfg)
+    rel, exposure, stats, _ = _refine(loss_fn, init_rel, int(num_iters),
+                                      exposure0, tcfg)
+    return rel, exposure, stats
+
+
 def _stable_topk(score: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest values, ties to the lower index (the
     lax.top_k order)."""

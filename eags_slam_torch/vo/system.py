@@ -264,7 +264,9 @@ class EdgeVO:
         t0 = time.perf_counter()
         dt_levels = make_keyframe(pyr, self.cfg.dt_window)
         if dt_levels[0].dt.is_cuda:
-            torch.cuda.synchronize(dt_levels[0].dt.device)
+            # This thread's stream only: a device-wide synchronize would
+            # also wait for the loop closer's stream.
+            torch.cuda.current_stream(dt_levels[0].dt.device).synchronize()
         self.dt_times.append(time.perf_counter() - t0)
         self.keyframes.append(_Keyframe(frame_id, pyr, dt_levels,
                                         np.asarray(T_w_frame, np.float64)))

@@ -170,7 +170,6 @@ def test_unported_tracker_options_raise(field):
     {"tracking": {"odometry_type": "odometer"}, "vo": {"device": "cpu"}},
     {"tracking": {"help_camera_initialization": True},
      "vo": {"device": "cuda:1"}},
-    {"lc": {"enabled": True}},
     {"use_mesh": True},
     {"force_mesh": True},
     {"tracking": {"sp_track": True}},
@@ -194,13 +193,16 @@ _CHEAP = {"mapping": {"iterations": 4, "new_submap_iterations": 8},
 
 @pytest.mark.parametrize("case", [
     "odometer", "odometer_coupled", "help_camera_initialization",
-    "synthetic_hard", "pose_grad_kernel", "rmw_window", "backend_pallas"])
+    "synthetic_hard", "pose_grad_kernel", "rmw_window", "backend_pallas",
+    "lc"])
 def test_ported_config_branches_run(tmp_path, monkeypatch, case):
     """The branches that used to raise now run: the edge VO (as the
     odometer, decoupled or coupled, or only scoring its candidate), the
     synthetic_hard scene, the pose-contraction backward, the windowed
-    backward (`mapping.rmw_window`) and the entry-binned backend
-    (`EAGS_RCFG=backend=pallas`), each through its twins on the CPU."""
+    backward (`mapping.rmw_window`), the entry-binned backend
+    (`EAGS_RCFG=backend=pallas`) and loop closure (`lc.enabled`, its
+    worker thread submitting the run's one submap), each through its twins
+    on the CPU."""
     sections = {
         "odometer": {"tracking": {"odometry_type": "odometer"}},
         "odometer_coupled": {"tracking": {"odometry_type": "odometer"},
@@ -212,6 +214,7 @@ def test_ported_config_branches_run(tmp_path, monkeypatch, case):
         "pose_grad_kernel": {"tracking": {"pose_grad_kernel": True}},
         "rmw_window": {"mapping": {"rmw_window": True}},
         "backend_pallas": {},
+        "lc": {"lc": {"enabled": True, "parallel": True}},
     }[case]
     monkeypatch.delenv("EAGS_RMW_WINDOW", raising=False)
     monkeypatch.delenv("EAGS_RCFG", raising=False)
@@ -240,6 +243,10 @@ def test_ported_config_branches_run(tmp_path, monkeypatch, case):
         assert (tmp_path / "out" / "vo_traj_tum.txt").exists()
     else:
         assert "vo" not in report
+    assert ("lc" in report) == (case == "lc")
+    if case == "lc":
+        assert report["lc"]["n_submits"] == 1
+        assert report["lc"]["n_closures"] == 0
     c = {**cs.counts(), **ce.counts()}
     twin = {"pose_grad_kernel": "pose_twin_calls",
             "rmw_window": "window_twin_calls",
@@ -253,13 +260,62 @@ def test_ported_config_branches_run(tmp_path, monkeypatch, case):
         assert c["fwd_twin_calls"] == c["bwd_twin_calls"] == 0
 
 
-@pytest.mark.parametrize("key", ["eval_mesh", "eval_global", "save_render"])
+@pytest.mark.parametrize("key", ["eval_mesh", "eval_global"])
 def test_unported_evaluation_raises(key):
     from eags_slam_torch.evaluation.evaluator import check_config
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_config({"evaluation": {key: True}})
     check_config(load_config(str(REPO / "configs/synthetic/tiny.yaml")))
+
+
+def test_bench_deadline_stops_between_frames(tmp_path, monkeypatch):
+    """`bench_deadline_ts` (bench.py's cooperative deadline) ends the run
+    cleanly between frames: here after 2 of 4 frames."""
+    import time as _time
+
+    from eags_slam_torch.slam import gaussian_slam as GS
+
+    clock = iter([0.0, 0.0, 5.0])     # the check before frames 0, 1, 2
+
+    class _Clock:
+        perf_counter = staticmethod(_time.perf_counter)
+
+        @staticmethod
+        def time():
+            return next(clock)
+
+    cfg = _tiny(tmp_path, frames=4, **_CHEAP)
+    cfg["bench_deadline_ts"] = 1.0
+    gslam = GaussianSLAM(cfg)
+    monkeypatch.setattr(GS, "time", _Clock)
+    try:
+        report = gslam.run()
+    finally:
+        gslam.cleanup()
+    assert report["frames"] == 2
+    assert len(gslam.track_times) == 2
+
+
+@pytest.mark.parametrize("key", ["save_render"])
+def test_ported_evaluation_runs(tmp_path, key):
+    """`evaluation.save_render` is ported: the evaluator writes each
+    keyframe's clipped render as eval_render/<frame>.png."""
+    from eags_slam_torch.evaluation.evaluator import Evaluator
+
+    cfg = _tiny(tmp_path, frames=2, **_CHEAP)
+    cfg["evaluation"] = {key: True}
+    gslam = GaussianSLAM(cfg)
+    try:
+        gslam.run()
+        rend = Evaluator(str(tmp_path / "out"), gslam.dataset,
+                         cfg).run_rendering_eval()
+    finally:
+        gslam.cleanup()
+    pngs = sorted(os.listdir(tmp_path / "out" / "eval_render"))
+    assert len(pngs) == rend["num_views"] > 0
+    with open(tmp_path / "out" / "eval_render" / pngs[0], "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
 
 
 def test_cli_runs_slice_on_cpu(tmp_path):

@@ -14,6 +14,10 @@ grid with more tiles than SMs. K4 runs on K2's grid and K5 on K1's block
 sizes: K4 at tiles 16 / 32 / 64 on both of K2's block sizes, twice bit for
 bit and against the K2 chain; K5 at the same tiles and block sizes on a
 scene whose tiles stop at the -11.5 threshold, with K6 on its outputs.
+K1 and K2 also run at the loop closer's shape (tile 16 on 600x340, a
+65,536-gaussian map, the full 836-tile grid and a shuffled 209-tile
+quarter), and a render on a tagged stream counts its launches apart from
+the main path's.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -662,3 +666,56 @@ def test_entry_forward_at_the_stop_threshold(case, cuda_device):
                                                 & (chunks > 1)).any())
     live = out_k[:, 5].amax(1)
     assert float(live[eff < chunks].max()) <= -11.5 + 1e-4
+
+
+# The loop closer's registration renders: the bench camera at pyramid level
+# 1 (600x340), tile 16 (38 x 22 = 836 tiles), a 65,536-gaussian subsample.
+CAM_LC = Camera(fx=300.0, fy=300.0, cx=299.5, cy=169.5, width=600,
+                height=340)
+
+
+@pytest.mark.parametrize("ids_kind", ["full", "quarter"])
+def test_kernels_at_the_closers_shape(ids_kind, cuda_device):
+    """K1 against its twin (survivors, columns, outputs, chunks used) and K2
+    against its twin (1e-3 of each row's max) on the full grid and on the
+    tile subset of a localisation segment."""
+    attrs, ss, sc, tx, num_tiles = _scene_inputs(16, 1024, 65536,
+                                                 cuda_device, seed=3,
+                                                 cam=CAM_LC)
+    assert num_tiles == 836
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    if ids_kind == "quarter":
+        ids = torch.randperm(num_tiles, generator=gen, device=cuda_device)[
+            :209].to(torch.int32)
+    args = (attrs, ss, sc, ids, 16, tx, 3, 1024)
+    ok, ck = cs.composite_sorted_fwd(*args)
+    ot, ct = cs.composite_sorted_fwd_plain(*args)
+    torch.cuda.synchronize()
+    _fwd_close(ok, ck, ot, ct)
+    dout = torch.randn(ot.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 16, tx)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx)
+    torch.cuda.synchronize()
+    _grads_close(gk, gt)
+
+
+def test_tagged_stream_counts_apart(cuda_device):
+    """A K1 + K2 render issued on a stream under `counting_as` counts under
+    its tag (the backward too, which the autograd engine runs in its own
+    thread on the forward's stream); the main path's counts stay 0."""
+    attrs, ss, sc, tx, num_tiles = _inputs(32, 1024, 800, cuda_device)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    cs.reset_counts()
+    with torch.cuda.stream(stream), cs.counting_as("lc", stream):
+        a = attrs.clone().requires_grad_(True)
+        out = cs.composite_sorted(a, ss, sc, ids, 32, tx, 3, 1024)
+        out[:, :5].sum().backward()
+    stream.synchronize()
+    lc = cs.counts("lc")
+    assert lc["fwd_launches"] == 1 and lc["bwd_launches"] == 1
+    assert all(v == 0 for v in cs.counts().values())
+    assert float(a.grad.abs().max()) > 0
