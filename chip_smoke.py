@@ -67,8 +67,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 < 5 cm, PSNR > 19 dB, at least one closure, its
                 corrections drained into the live pose array and its
                 submaps' files rewritten.
+ 10. heavy    - bench.py's heavy evaluation on the lc phase's output
+                directory (its 72 frames, four submaps, loop-corrected
+                anchors), at the evaluator's settings: K1 and K2 against
+                their twins at the global refine's shape (tile 16 on the
+                full 1200x680 image, 3225 tiles, the merged map at one
+                keyframe), timed with their bounds, with the tiles whose
+                bands seg_cap clips; then, with the launch counts set to 0,
+                the reconstruction (TSDF at voxel 5/512 on a grid of at
+                most 512^3, 20k GT points a keyframe, 200k mesh samples,
+                1000 unseen views at 128 x 128: grid, integrate ms a
+                keyframe, surface nets / clean / sample / metrics seconds,
+                vertices, faces, accuracy, completion, precision, recall,
+                F1, depth-L1) and the global refine (bench.py's 2000
+                iterations, its K1 / K2 launches counted under the tag
+                "global": seconds, ms an iteration, PSNR / SSIM / MS-SSIM
+                beside the lc phase's per-submap PSNR, alive before and
+                after, peak memory). Gates: faces > 0, F1 > 0.4, global
+                PSNR > 19 dB, every number finite, no twin, and
+                mesh/global_splats.ply read back with the alive count.
 Then the kernel summary line (K5 / K6 launches also by layout: render
-binning, frozen tracking binning) and the result line. The card line (from
+binning, frozen tracking binning; K1 / K2 at the global shape and
+`launches_global`, the refine's) and the result line. The card line (from
 the device phase) comes first.
 
 There is no CPU path: without CUDA the script exits 1 before any result.
@@ -1175,6 +1195,230 @@ def phase_lc(n_frames: int, out_dir: str, c2f_line):
     return line
 
 
+# The global refine's renders: the evaluator's raster settings (tile 16,
+# dup_side 4, seg_cap 1024, bands 3) on the full bench camera, and
+# bench.py's refine length.
+GLOBAL_ITERS = 2000
+
+
+def _finite(obj) -> bool:
+    """Every number in a (nested) JSON-like object is finite."""
+    import math
+
+    if isinstance(obj, dict):
+        return all(_finite(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(_finite(v) for v in obj)
+    if isinstance(obj, float):
+        return math.isfinite(obj)
+    return True
+
+
+def _check_global_shape(ev, reps: int):
+    """K1 and K2 against their twins at the global refine's shape: the
+    merged map of the run's submaps as the refine starts (degree-0
+    colours, all alive), rendered at the middle keyframe on the full
+    image at the evaluator's raster settings. The tolerances of the
+    kernels phase; median times of both and of the twins; bounds; the
+    tiles whose bands seg_cap clips. Returns (ok, report, {kid: entry})."""
+    import numpy as np
+    import torch
+
+    from eags_slam_torch.core.sh import sh_to_rgb
+    from eags_slam_torch.evaluation.merged_map import merge_submaps
+    from eags_slam_torch.ops import composite_sorted as cs
+    from eags_slam_torch.ops import rasterizer as R
+
+    dicts, kf_ids = [], []
+    for sm, _, world in ev._world_submaps():
+        dicts.append(world)
+        kf_ids.extend(int(f) for f in sm.kf_frame_ids)
+    merged = merge_submaps(dicts)
+    kf_ids = sorted(set(kf_ids))
+    fid = kf_ids[len(kf_ids) // 2]
+    cam, cfg = ev.cam, ev.rcfg
+    g = {k: torch.as_tensor(v, device="cuda") for k, v in merged.items()}
+    w2c = torch.as_tensor(np.linalg.inv(ev.estimated_c2ws[fid]),
+                          dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        proj = R.project_gaussians(g["xyz"], g["quats"], g["log_scales"],
+                                   g["opacity_logits"], w2c, cam, cfg,
+                                   radius_cap=R._v2_radius_cap(cfg))
+        attrs, seg_start, seg_cnt = R._sorted_attrs(
+            proj, sh_to_rgb(g["f_dc"]), cam, cfg)
+        attrs = attrs.contiguous()
+        # The same segments without the seg_cap clip.
+        _, _, cnt_all = R._center_sort(proj, cam, cfg._replace(
+            seg_cap=1 << 30))
+    tiles_x, tiles_y = R._tiles(cam, cfg)
+    T = tiles_x * tiles_y
+    tile_ids = torch.arange(T, dtype=torch.int32, device="cuda")
+    args = (attrs, seg_start, seg_cnt, tile_ids, cfg.tile, tiles_x,
+            cfg.bands, cfg.seg_cap)
+    out_k, cols_k = cs.composite_sorted_fwd(*args)
+    out_t, cols_t = cs.composite_sorted_fwd_plain(*args)
+    torch.cuda.synchronize()
+    ok_f, rep_f = _compare_fwd(out_k, cols_k, out_t, cols_t)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dout = torch.randn(out_t.shape, generator=gen, device="cuda")
+    dout[:, 5:] = 0.0
+    g_k = cs.composite_sorted_bwd(attrs, tile_ids, out_k, cols_k, dout,
+                                  cfg.tile, tiles_x)
+    g_t = cs.composite_sorted_bwd_plain(attrs, tile_ids, out_t, cols_t,
+                                        dout, cfg.tile, tiles_x)
+    torch.cuda.synchronize()
+    ok_b, rep_b, worst = _compare_bwd(g_k, g_t)
+    work = _work(attrs, tile_ids, out_k, cols_k, cfg.tile, tiles_x)
+    k1_bound = _bound(_nbytes(attrs, seg_start, seg_cnt, tile_ids, out_k,
+                              cols_k), _ops("K1", work))
+    k2_bound = _bound(_nbytes(attrs, tile_ids, out_k, cols_k, dout, g_k),
+                      _ops("K2", work))
+    k1_ms = _median_ms(lambda: cs.composite_sorted_fwd(*args), reps)
+    k2_ms = _median_ms(lambda: cs.composite_sorted_bwd(
+        attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
+    k1_plain = _median_ms(lambda: cs.composite_sorted_fwd_plain(*args),
+                          max(3, reps // 4))
+    k2_plain = _median_ms(lambda: cs.composite_sorted_bwd_plain(
+        attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x),
+        max(3, reps // 4))
+    clipped = int((cnt_all > seg_cnt).any(1).sum())
+    entries = {
+        "K1": {"tiles": T, "ms": k1_ms, "plain_ms": k1_plain,
+               "bound_ms": k1_bound["bound_ms"],
+               "bound_by": k1_bound["bound_by"],
+               "bound_share": k1_bound["bound_ms"] / k1_ms,
+               "max_abs_err": max(rep_f[c]["max_abs"] for c in
+                                  ("r", "g", "b", "depth", "alpha"))},
+        "K2": {"tiles": T, "ms": k2_ms, "plain_ms": k2_plain,
+               "bound_ms": k2_bound["bound_ms"],
+               "bound_by": k2_bound["bound_by"],
+               "bound_share": k2_bound["bound_ms"] / k2_ms,
+               "max_rel_to_rowmax": worst,
+               "max_abs_err": max(rep_b[c]["max_abs"] for c in rep_b
+                                  if isinstance(rep_b[c], dict))}}
+    rep = {"shape": {"H": cam.height, "W": cam.width, "tile": cfg.tile,
+                     "bands": cfg.bands, "seg_cap": cfg.seg_cap, "tiles": T,
+                     "npad": int(attrs.shape[1]), "keyframe": fid},
+           "merged_gaussians": int(merged["xyz"].shape[0]),
+           "visible_gaussians": int((proj.radius > 0).sum()),
+           "mean_survivors": rep_f["mean_survivors"],
+           "max_survivors": rep_f["max_survivors"],
+           "clipped_tiles": clipped,
+           "pairs": work["pairs"], "boxed_pairs": work["boxed"],
+           "contributing_pairs": work["contrib"],
+           "fwd_ok": ok_f, "fwd": rep_f, "bwd_ok": ok_b, "bwd": rep_b,
+           "bounds": {"K1": k1_bound, "K2": k2_bound}, **{
+               kid: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_share")}
+               for kid, e in entries.items()}}
+    return ok_f and ok_b, rep, entries
+
+
+def phase_heavy(n_frames: int, lc_dir: str, lc_line, reps: int):
+    """bench.py's heavy evaluation on the lc phase's output directory at
+    the evaluator's defaults (module docstring, phase 10), after K1 / K2
+    are held against their twins at the global shape. The launch counts
+    are set to 0 just before the reconstruction and read just after the
+    refine, whose K1 / K2 launches count under the tag "global" (every
+    launch on the card's current stream while it runs). Gate: faces > 0,
+    F1 > 0.4, global PSNR > 19 dB (the lc phase's own gate), every
+    number finite, no twin, the refine's K1 / K2 launched at least once
+    an iteration, and mesh/global_splats.ply read back with the alive
+    count. Returns (line, {kid: global-shape entry})."""
+    import numpy as np
+    import torch
+
+    from eags_slam_torch.bench import make_config
+    from eags_slam_torch.datasets import get_dataset
+    from eags_slam_torch.evaluation.evaluator import Evaluator
+    from eags_slam_torch.lc.loop_closure import LC_TAG
+    from eags_slam_torch.ops import composite_entries as ce
+    from eags_slam_torch.ops import composite_sorted as cs
+    from eags_slam_torch.utils.ply import load_gaussian_ply
+
+    config = make_config(n_frames, lc_dir)
+    config.pop("bench_deadline_ts")
+    config["evaluation"].update({"eval_mesh": True, "eval_global": True,
+                                 "global_refine_iters": GLOBAL_ITERS})
+    t0 = time.perf_counter()
+    dataset = get_dataset(config["data"]["dataset_name"])(config,
+                                                          device="cuda")
+    dataset_s = time.perf_counter() - t0
+    try:
+        ev = Evaluator(lc_dir, dataset, config)
+        ok_k, rep_k, k12 = _check_global_shape(ev, reps)
+        emit({"phase": "heavy_kernels", "ok": ok_k, "tolerances": TOL,
+              **rep_k})
+        if not ok_k:
+            raise SystemExit("heavy: kernel vs twin check at the global "
+                             "shape failed")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cs.reset_counts()
+        ce.reset_counts()
+        t0 = time.perf_counter()
+        rec = ev.run_reconstruction_eval()
+        recon_s = time.perf_counter() - t0
+        peak_recon = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stream = torch.cuda.current_stream()
+        t0 = time.perf_counter()
+        with cs.counting_as("global", stream):
+            glob = ev.run_global_map_eval()
+        torch.cuda.synchronize()
+        global_s = time.perf_counter() - t0
+        peak_global = torch.cuda.max_memory_allocated()
+        launches = {**cs.counts(), **ce.counts()}
+        launches_lc = {**cs.counts(LC_TAG), **ce.counts(LC_TAG)}
+        launches_global = {**cs.counts("global"), **ce.counts("global")}
+        by_layout = ce.layout_counts()
+    finally:
+        dataset.close()
+    splats = load_gaussian_ply(os.path.join(lc_dir, "mesh",
+                                            "global_splats.ply"))
+    refine_s = glob["stage_s"]["refine"]
+    line = {
+        "phase": "heavy", "launches": launches, "launches_lc": launches_lc,
+        "launches_global": launches_global, "launches_by_layout": by_layout,
+        "dataset_s": dataset_s,
+        "recon": {k: rec[k] for k in (
+            "grid_dims", "n_keyframes", "integrate_ms", "stage_s",
+            "n_vertices", "n_faces", "gt_source", "accuracy", "completion",
+            "precision", "recall", "f1", "depth_l1_sample_view")},
+        "recon_s": recon_s, "peak_mem_gb_recon": peak_recon / 2**30,
+        "global": {
+            "iterations": glob["iterations"], "seconds": global_s,
+            "refine_s": refine_s,
+            "ms_per_iter": 1e3 * refine_s / glob["iterations"],
+            "stage_s": glob["stage_s"], "psnr_db": glob["mean_psnr"],
+            "ssim": glob["mean_ssim"], "ms_ssim": glob["mean_ms_ssim"],
+            "views": glob["num_views"],
+            "alive_before": glob["n_gaussians"],
+            "alive_after": glob["n_alive"],
+            "splats_rows": int(splats["xyz"].shape[0])},
+        "submap_psnr_db": None if lc_line is None else lc_line["psnr_db"],
+        "peak_mem_gb_global": peak_global / 2**30,
+        "global_shape": {kid: {k: e[k] for k in ("ms", "bound_ms",
+                                                 "bound_share")}
+                         for kid, e in k12.items()},
+    }
+    la = launches_global
+    ok = (all(launches[k] == 0 and launches_global[k] == 0
+              and launches_lc[k] == 0 for k in TWIN_KEYS)
+          and rec["n_faces"] > 0 and rec["f1"] > 0.4
+          and glob["mean_psnr"] > 19.0 and _finite(line)
+          and la["fwd_launches"] >= GLOBAL_ITERS
+          and la["bwd_launches"] >= GLOBAL_ITERS
+          and launches["fwd_launches"] >= rec["n_keyframes"]
+          and splats["xyz"].shape[0] == glob["n_alive"]
+          and bool(np.isfinite(splats["xyz"]).all()))
+    emit({**line, "ok": ok})
+    if not ok:
+        raise SystemExit("heavy check failed")
+    return line, k12
+
+
 def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
     """The slice's protocol on the entry-binned backend (EAGS_RCFG=
     backend=pallas for this run): candidate scoring, frozen-binning
@@ -1206,7 +1450,7 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
                    default="device,build,kernels,slice,window,c2f,lc,"
-                   "entries,slice_k4")
+                   "heavy,entries,slice_k4")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -1234,8 +1478,18 @@ def main():
     if "c2f" in phases:
         c2f_line = phase_c2f(C2F_FRAMES, args.out + "_c2f")
         runs.append(c2f_line)
+    lc_line = None
     if "lc" in phases:
-        runs.append(phase_lc(LC_FRAMES, args.out + "_lc", c2f_line))
+        lc_line = phase_lc(LC_FRAMES, args.out + "_lc", c2f_line)
+        runs.append(lc_line)
+    launches_global = None
+    if "heavy" in phases:
+        heavy_line, k12_global = phase_heavy(LC_FRAMES, args.out + "_lc",
+                                             lc_line, REPS)
+        runs.append(heavy_line)
+        launches_global = heavy_line["launches_global"]
+        for kid, extra in k12_global.items():
+            summary.setdefault(kid, {})["global"] = extra
     if "entries" in phases:
         runs.append(phase_entries(PER_WALL, N_FRAMES, args.out + "_entries",
                                   slice_line))
@@ -1252,12 +1506,15 @@ def main():
              # The loop closer's launches, counted apart (lc phase).
              "launches_lc": sum(r["launches_lc"][lkey] for r in runs)
              if runs else None,
+             # The global refine's, counted apart (heavy phase).
+             "launches_global": None if launches_global is None
+             else launches_global[lkey],
              "max_abs_err": s.get("max_abs_err"),
              "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
              "bound_ms": s.get("bound_ms"),
              "bound_by": s.get("bound_by"), "library_ms": None,
              **{f: s[f] for f in ("run", "subset", "polish", "full",
-                                  "frozen", "lc_full", "lc_subset")
+                                  "frozen", "lc_full", "lc_subset", "global")
                 if f in s}}
         if kid in ("K5", "K6") and runs:
             # K5 / K6 run on two layouts: the render binning and the

@@ -1,7 +1,8 @@
 """bench.py's end-to-end protocol for the port, on the card:
 
     python -m eags_slam_torch.bench            # quick run, then full run
-    python -m eags_slam_torch.bench --quick    # the quick run only
+    python -m eags_slam_torch.bench --quick    # the quick run only (with
+                                               # the heavy evaluation)
     python -m eags_slam_torch.bench --full_only --lc off   # no loop closure
 
 The full system of the repo's `bench.py` (`make_config`): the
@@ -18,8 +19,14 @@ Each run prints one flushed JSON line when `GaussianSLAM.run` returns (FPS,
 closures, stage totals) and a second with the cheap evaluation added (ATE /
 RPE, PSNR / SSIM / MS-SSIM / depth-L1 of the submaps' keyframes), with
 bench.py's `emit` keys plus the card's `nvidia-smi` name and power limit.
-`mesh_f1` and `global_psnr_db` (the heavy evaluation) and bench.py's
-`EAGS_BENCH_MESH` (the multi-device mapping path) are not ported yet;
+The full run (the quick run with `--quick`) then takes bench.py's heavy
+evaluation, each stage's line printed as soon as its number exists: the
+mesh F-score (`mesh_f1`; the unseen-view depth-L1 off, as in bench.py)
+when more than 900 s of the deadline are left, then the global refine's
+PSNR (`global_psnr_db`, 2000 iterations) when more than 600 s are; a stage
+that raises leaves bench.py's `mesh_error` / `global_error` in place of
+its number. The last line, without a `phase`, carries both. bench.py's
+`EAGS_BENCH_MESH` (the multi-device mapping path) is not ported yet;
 `EAGS_GT_CAMERA` runs the protocol at ground-truth poses, as in bench.py.
 `EAGS_BENCH_DEADLINE_S` (default 2700 s from `EAGS_BENCH_T0`, default now)
 stops a run cleanly between frames 180 s before the deadline, and the full
@@ -41,6 +48,11 @@ import time
 
 BASELINE_FPS = 1.5   # bench.py's comparison point (GS-SLAM on an RTX 4090)
 METRIC = "e2e_slam_fps_replica_scale_full_system"
+# bench.py's heavy evaluation: the deadline seconds each stage needs left,
+# and its settings.
+RECON_MIN_LEFT_S = 900
+GLOBAL_MIN_LEFT_S = 600
+HEAVY_EVAL = {"unseen_views": 0, "global_refine_iters": 2000}
 
 
 def _deadline_left() -> float:
@@ -118,21 +130,28 @@ def card() -> str:
     return lines[0] if lines else ""
 
 
-def emit(report: dict, quality: dict, card_line: str, phase: str) -> dict:
+def emit(report: dict, quality: dict, card_line: str,
+         phase: str = None) -> dict:
     """Print one flushed JSON line; metrics not (yet) measured are left
-    out (NaN would not be JSON)."""
+    out (NaN would not be JSON). `phase` None: the final line, unphased."""
     lc = report.get("lc", {})
     line = {"metric": METRIC, "value": round(report["fps"], 3),
             "unit": "frames/s",
-            "vs_baseline": round(report["fps"] / BASELINE_FPS, 3),
-            "phase": phase}
+            "vs_baseline": round(report["fps"] / BASELINE_FPS, 3)}
+    if phase:
+        line["phase"] = phase
     for key, src, nd in (
             ("ate_cm", "ate_rmse_cm", 3), ("rpe_cm", "rpe_trans_cm", 3),
             ("psnr_db", "psnr_db", 2), ("ssim", "ssim", 3),
-            ("ms_ssim", "ms_ssim", 3), ("depth_l1_cm", "depth_l1_cm", 2)):
+            ("ms_ssim", "ms_ssim", 3), ("depth_l1_cm", "depth_l1_cm", 2),
+            ("mesh_f1", "mesh_f1", 3), ("global_psnr_db", "global_psnr_db",
+                                        2)):
         v = quality.get(src)
         if v is not None and not (isinstance(v, float) and math.isnan(v)):
             line[key] = round(float(v), nd)
+    for err_key in ("mesh_error", "global_error"):
+        if quality.get(err_key):
+            line[err_key] = quality[err_key]
     line["n_closures"] = lc.get("n_closures", 0)
     line["lc_submit_ms_mean"] = round(lc.get("submit_ms_mean", 0.0), 1)
     line["stages_s"] = report.get("stage_totals_s", {})
@@ -161,9 +180,42 @@ def evaluate_cheap(gslam, config: dict, out: str) -> dict:
     }
 
 
+def evaluate_recon(gslam, config: dict, out: str) -> dict:
+    """The mesh F-score of a finished run (bench.py's `_evaluate_recon`);
+    a stage that raises reports `mesh_error` instead."""
+    from .evaluation.evaluator import Evaluator
+
+    config.setdefault("evaluation", {})["unseen_views"] = \
+        HEAVY_EVAL["unseen_views"]
+    try:
+        recon = Evaluator(out, gslam.dataset,
+                          config).run_reconstruction_eval()
+        return {"mesh_f1": float(recon.get("f1", 0.0))}
+    except Exception as exc:  # noqa: BLE001 -- bench.py's report, not a stop
+        return {"mesh_error": repr(exc)[:200]}
+
+
+def evaluate_global(gslam, config: dict, out: str) -> dict:
+    """The global refine's PSNR (bench.py's `_evaluate_global`, 2000
+    iterations); a stage that raises reports `global_error` instead."""
+    from .evaluation.evaluator import Evaluator
+
+    config.setdefault("evaluation", {})["global_refine_iters"] = \
+        HEAVY_EVAL["global_refine_iters"]
+    try:
+        glob = Evaluator(out, gslam.dataset, config).run_global_map_eval()
+        return {"global_psnr_db": float(glob["mean_psnr"])}
+    except Exception as exc:  # noqa: BLE001 -- bench.py's report, not a stop
+        return {"global_error": repr(exc)[:200]}
+
+
 def run_once(n_frames: int, out: str, phase: str, card_line: str,
-             device: str = "cuda", lc: bool = True):
-    """One timed SLAM run: its FPS line, then its cheap-eval line."""
+             device: str = "cuda", lc: bool = True,
+             heavy_eval: bool = False):
+    """One timed SLAM run: its FPS line, then its cheap-eval line; with
+    `heavy_eval`, bench.py's mesh and global stages after it, each
+    stage's line as soon as its number exists, then the final unphased
+    line."""
     from .slam.gaussian_slam import GaussianSLAM
 
     config = make_config(n_frames, out, device, lc)
@@ -171,8 +223,22 @@ def run_once(n_frames: int, out: str, phase: str, card_line: str,
     try:
         report = gslam.run()
         emit(report, {}, card_line, phase)
-        line = emit(report, evaluate_cheap(gslam, config, out), card_line,
-                    phase)
+        q = evaluate_cheap(gslam, config, out)
+        line = emit(report, q, card_line, phase)
+        if heavy_eval:
+            if _deadline_left() > RECON_MIN_LEFT_S:
+                q.update(evaluate_recon(gslam, config, out))
+                line = emit(report, q, card_line)
+                if _deadline_left() > GLOBAL_MIN_LEFT_S:
+                    q.update(evaluate_global(gslam, config, out))
+                else:
+                    sys.stderr.write("eags_slam_torch.bench: skipping the "
+                                     "global eval (deadline budget low)\n")
+            else:
+                sys.stderr.write("eags_slam_torch.bench: skipping the "
+                                 "mesh / global eval (deadline budget "
+                                 "low)\n")
+            line = emit(report, q, card_line)
     finally:
         gslam.cleanup()
     return report, line
@@ -205,14 +271,16 @@ def main(argv=None):
     card_line = card()
     lc = args.lc == "on"
     if not args.full_only:
-        run_once(24, args.out + "_quick", "quick", card_line, lc=lc)
+        run_once(24, args.out + "_quick", "quick", card_line, lc=lc,
+                 heavy_eval=args.quick)
     if args.quick:
         return
     if _deadline_left() < 420:
         sys.stderr.write("eags_slam_torch.bench: too little of the deadline "
                          "left for the full run\n")
         return
-    run_once(72, args.out + "_full", "full", card_line, lc=lc)
+    run_once(72, args.out + "_full", "full", card_line, lc=lc,
+             heavy_eval=True)
 
 
 if __name__ == "__main__":

@@ -263,7 +263,8 @@ def expand_state(state: GaussianState, new_capacity: int) -> GaussianState:
 def state_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> GaussianState:
     """Port state from a numpy dict: the parameter keys of
     `eags_slam_tpu.slam.submap.pack_state` (an all-zero `f_rest` may be the
-    (0, 15, 3) marker), optionally `alive` (default: all alive),
+    (0, 15, 3) marker; a merged map's SH rests (N, 15, 3) carry as they
+    are), optionally `alive` (default: all alive),
     `adam_step` and `adam_{mu,nu,vmax}_{xyz,log_scales,quats,opacity_logits}`
     (default: zero moments)."""
     n = d["xyz"].shape[0]

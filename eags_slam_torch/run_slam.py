@@ -7,7 +7,10 @@ Same YAML configs and flags as the JAX package's `run_slam.py`, plus
 `FPS:`, `Track avg:` and `ATE-RMSE:` lines and writes `estimated_c2w.npz`,
 `submaps/*.npz`, `config.yaml`, `log.jsonl` and the evaluation's
 `ate.json`, `rendering_metrics.json` and `evaluation.json` into the output
-path. The mesh / global-map evaluation is not ported yet.
+path, plus the heavy evaluation's files where the config turns it on
+(`evaluation.eval_mesh`: `reconstruction_metrics.json` and
+`mesh/cleaned_mesh.ply`; `evaluation.eval_global`:
+`rendering_metrics_global.json` and `mesh/global_splats.ply`).
 """
 import argparse
 import random
@@ -52,10 +55,6 @@ def main(argv=None):
     config = update_config_with_args(config, args)
     if args.device is not None:
         config["device"] = args.device
-    if not args.no_eval:
-        from .evaluation.evaluator import check_config
-
-        check_config(config)
     seed = int(config.get("seed", 0))
     random.seed(seed)
     np.random.seed(seed)

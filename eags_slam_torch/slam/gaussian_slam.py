@@ -31,6 +31,10 @@ live pose array (timed as the `lc_drain` stage). The loop syncs only its
 own stream. `bench_deadline_ts` (a wall-clock time) stops the loop
 cleanly between frames.
 
+The run's evaluation, the heavy stages (`evaluation.eval_mesh`,
+`eval_global`) included, runs after the loop (`evaluation/evaluator.py`,
+driven by `run_slam`, `run_evaluation` and `bench`).
+
 Not ported yet, each raising NotImplementedError when a config selects it:
 the device mesh (`use_mesh`, `force_mesh`,
 `sp_track`), the half-resolution submap init (`init_halfres_frac > 0`), the

@@ -8,6 +8,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -76,3 +77,115 @@ def test_bench_refuses_without_card(tmp_path):
                          env=env)
     assert res.returncode != 0
     assert '"metric"' not in res.stdout
+
+
+def test_heavy_eval_settings_are_bench_py(monkeypatch, tmp_path):
+    """bench.py's heavy evaluation, setting by setting: the mesh stage runs
+    with the unseen-view depth-L1 off, the global stage with 2000 refine
+    iterations, each through its evaluator's own stage; the deadline
+    thresholds are bench.py's 900 s and 600 s."""
+    import inspect
+
+    from eags_slam_tpu.evaluation import evaluator as jev
+    from eags_slam_torch.evaluation import evaluator as tev
+
+    seen = {}
+
+    def fake(tag):
+        class _Ev:
+            def __init__(self, out, dataset, config):
+                self.config = config
+
+            def run_reconstruction_eval(self):
+                seen[(tag, "recon")] = dict(self.config["evaluation"])
+                return {"f1": 0.5}
+
+            def run_global_map_eval(self):
+                seen[(tag, "global")] = dict(self.config["evaluation"])
+                return {"mean_psnr": 25.0}
+        return _Ev
+
+    monkeypatch.setattr(jev, "Evaluator", fake("jax"))
+    monkeypatch.setattr(tev, "Evaluator", fake("port"))
+    jb = _jax_bench()
+    gslam = types.SimpleNamespace(dataset=None)
+    j = {**jb._evaluate_recon(gslam, {}, "o"),
+         **jb._evaluate_global(gslam, {}, "o")}
+    t = {**tbench.evaluate_recon(gslam, {}, "o"),
+         **tbench.evaluate_global(gslam, {}, "o")}
+    assert t == j == {"mesh_f1": 0.5, "global_psnr_db": 25.0}
+    for stage in ("recon", "global"):
+        assert seen[("port", stage)] == seen[("jax", stage)]
+    assert seen[("port", "recon")] == {"unseen_views": 0}
+    assert seen[("port", "global")] == {"global_refine_iters": 2000}
+    src = inspect.getsource(jb.run_once)
+    assert f"_deadline_left() > {tbench.RECON_MIN_LEFT_S}" in src
+    assert f"_deadline_left() > {tbench.GLOBAL_MIN_LEFT_S}" in src
+    assert (tbench.RECON_MIN_LEFT_S, tbench.GLOBAL_MIN_LEFT_S) == (900, 600)
+
+
+def test_heavy_eval_errors_are_reported(monkeypatch):
+    """A heavy stage that raises leaves bench.py's error key in place of
+    its number."""
+    from eags_slam_torch.evaluation import evaluator as tev
+
+    class _Broken:
+        def __init__(self, *a):
+            pass
+
+        def run_reconstruction_eval(self):
+            raise RuntimeError("no mesh")
+
+        run_global_map_eval = run_reconstruction_eval
+
+    monkeypatch.setattr(tev, "Evaluator", _Broken)
+    gslam = types.SimpleNamespace(dataset=None)
+    assert tbench.evaluate_recon(gslam, {}, "o") == {
+        "mesh_error": "RuntimeError('no mesh')"}
+    assert tbench.evaluate_global(gslam, {}, "o") == {
+        "global_error": "RuntimeError('no mesh')"}
+
+
+@pytest.mark.parametrize("left,stages", [
+    ((2000.0, 1500.0), ("recon", "global")), ((1000.0, 500.0), ("recon",)),
+    ((700.0,), ())])
+def test_heavy_eval_lines(monkeypatch, capsys, left, stages):
+    """run_once with the heavy evaluation: the FPS line, the cheap-eval
+    line, the mesh stage's line as soon as mesh_f1 exists, then the final
+    unphased line with mesh_f1 and global_psnr_db; each stage only with
+    its deadline budget left (bench.py's 900 / 600 s)."""
+    from eags_slam_torch.slam import gaussian_slam as GS
+
+    class _SLAM:
+        def __init__(self, config):
+            self.dataset = None
+
+        def run(self):
+            return {"fps": 0.5, "frames": 72, "stage_totals_s": {}}
+
+        def cleanup(self):
+            pass
+
+    ran = []
+    monkeypatch.setattr(GS, "GaussianSLAM", _SLAM)
+    budget = iter(left)
+    monkeypatch.setattr(tbench, "_deadline_left", lambda: next(budget))
+    monkeypatch.setattr(tbench, "evaluate_cheap",
+                        lambda *a: {"psnr_db": 30.0})
+    monkeypatch.setattr(tbench, "evaluate_recon",
+                        lambda *a: ran.append("recon") or {"mesh_f1": 0.6})
+    monkeypatch.setattr(tbench, "evaluate_global",
+                        lambda *a: ran.append("global")
+                        or {"global_psnr_db": 27.5})
+    _, line = tbench.run_once(72, "o", "full", "card", lc=False,
+                              heavy_eval=True)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert tuple(ran) == stages
+    assert [x.get("phase") for x in lines] == \
+        ["full", "full"] + [None] * (2 if stages else 1)
+    assert lines[-1] == line and "phase" not in line
+    assert ("mesh_f1" in line) == ("recon" in stages)
+    assert ("global_psnr_db" in line) == ("global" in stages)
+    if stages:
+        assert lines[2]["mesh_f1"] == 0.6 and "global_psnr_db" not in \
+            lines[2]

@@ -16,8 +16,9 @@ bit and against the K2 chain; K5 at the same tiles and block sizes on a
 scene whose tiles stop at the -11.5 threshold, with K6 on its outputs.
 K1 and K2 also run at the loop closer's shape (tile 16 on 600x340, a
 65,536-gaussian map, the full 836-tile grid and a shuffled 209-tile
-quarter), and a render on a tagged stream counts its launches apart from
-the main path's.
+quarter) and at the global refine's (tile 16 on the full 1200x680
+image, 3225 tiles, 300,000 and 1,200,000 gaussians), and a render on a
+tagged stream counts its launches apart from the main path's.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -699,6 +700,46 @@ def test_kernels_at_the_closers_shape(ids_kind, cuda_device):
     gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx)
     torch.cuda.synchronize()
     _grads_close(gk, gt)
+
+
+# The global refine's renders (the evaluator's raster settings): the bench
+# camera at full size, tile 16 (75 x 43 = 3225 tiles), on maps the size of
+# bench.py's merged map and beyond it (many bands clipped at seg_cap 1024).
+CAM_GLOBAL = Camera(fx=600.0, fy=600.0, cx=599.5, cy=339.5, width=1200,
+                    height=680)
+
+
+@pytest.mark.parametrize("n", [300_000, 1_200_000])
+def test_kernels_at_the_global_shape(n, cuda_device):
+    """K1 against its twin (survivors, columns, outputs, chunks used) and K2
+    against its twin (1e-3 of each row's max) on the full 3225-tile grid,
+    and one render of the merged-map size through the autograd path."""
+    attrs, ss, sc, tx, num_tiles = _scene_inputs(16, 1024, n, cuda_device,
+                                                 seed=11, cam=CAM_GLOBAL)
+    assert num_tiles == 3225
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    args = (attrs, ss, sc, ids, 16, tx, 3, 1024)
+    ok, ck = cs.composite_sorted_fwd(*args)
+    ot, ct = cs.composite_sorted_fwd_plain(*args)
+    torch.cuda.synchronize()
+    _fwd_close(ok, ck, ot, ct)
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    dout = torch.randn(ot.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 16, tx)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx)
+    torch.cuda.synchronize()
+    _grads_close(gk, gt)
+    t = _scene(n, cuda_device, 11)
+    means = t["means"].clone().requires_grad_(True)
+    out = R.render(means, t["q"], t["ls"], t["op"], t["col"],
+                   torch.eye(4, device=cuda_device), CAM_GLOBAL,
+                   RasterConfig(tile=16, dup_side=4))
+    out.color.sum().backward()
+    torch.cuda.synchronize()
+    assert out.color.shape == (680, 1200, 3)
+    assert bool(torch.isfinite(means.grad).all())
+    assert float(means.grad.abs().max()) > 0
 
 
 def test_tagged_stream_counts_apart(cuda_device):
