@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   - CUDA must be present; card name and power limit
-                (nvidia-smi); TF32 off for matmuls and convolutions.
+                (nvidia-smi); the Pillow version (null without it: the
+                replica phase's JPEG needs it); TF32 off for matmuls and
+                convolutions.
   2. build    - K1-K6 from eags_slam_torch/csrc: one nvcc per source, in
                 parallel, then one link, all with FMA (every kernel rounds
                 its alpha decisions as the twin does through _rn
@@ -26,7 +28,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 bit, both timed on both; then K1 and K2 at the loop
                 closer's shape (tile 16 on the 600x340 localisation camera,
                 a 65,536-gaussian map like the closer's subsample, the full
-                836-tile grid and a shuffled 209-tile quarter, both timed);
+                836-tile grid and a shuffled 209-tile quarter, both timed),
+                and at the TUM RGB-D map camera's (tile 32 on 540x380, a
+                50,000-gaussian map, the full 204-tile grid and the
+                tracker's shuffled 51-tile quarter, both timed);
                 max errors against the stated tolerances; median kernel,
                 twin and backward times; each kernel's bound on every timed
                 shape.
@@ -86,9 +91,46 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 after, peak memory). Gates: faces > 0, F1 > 0.4, global
                 PSNR > 19 dB, every number finite, no twin, and
                 mesh/global_splats.ply read back with the alive count.
+ 11. tum      - the TUM RGB-D reader at configs/TUM_RGBD/fr1_desk.yaml's
+                full size: 24 frames of synthetic_hard rendered at its
+                calibration (640x480), colour pre-distorted with its lens
+                coefficients (the model inverted by fixed-point iteration,
+                its residual printed over the part the crop keeps), written
+                in the TUM layout with the port's writer (colour rows with
+                every PNG filter type, 16-bit depth at 5000 stamped 12 ms
+                later, ground truth 4 ms later, one orphan pair 5 s after
+                the last frame); then fr1_desk.yaml as it stands (crop 50,
+                the odometer, exposure, outlier removal, loop closure) read
+                back through GaussianSLAM.run and the evaluator. Gate: 24
+                frames (the orphan rejected), frame 0's undistorted colour
+                within mean abs 0.02 of the clean render over the map
+                camera's pixels, the map camera 540x380 and the VO stepped
+                on 640x480 frames, every mapped frame seeded from the VO's
+                edges (no Canny fallback), ATE < 5 cm, PSNR > 19 dB, no
+                twin. Prints FPS, track / map / VO ms, data_wait and the
+                preloader's decode ms a frame, a Paeth-filtered frame's
+                decode alone (beside Pillow's), peak memory, K1 / K2
+                launches a frame.
+ 12. replica  - the Replica reader: 24 frames of bench.py's synthetic_hard
+                at 1200x680 written as JPEG colour (quality 95, Pillow),
+                16-bit depth at 6553.5 and traj.txt, run through
+                configs/Replica/room0.yaml with the heavy evaluation off
+                (the heavy phase covers it); the tum phase's gates.
+ 13. tum_cost - not run by default (`--phases ...,tum,tum_cost`): what the
+                reader costs the loop. The tum phase's 24 frames run six
+                more times from three sources: the reader (decode on the
+                preloader thread beside the loop), the reader handed the
+                same frames decoded beforehand (thread and pinned uploads,
+                no decode) and an ArrayDataset of those frames on the
+                card; reader / cached / decoded / decoded / cached /
+                reader. Prints FPS, track / map / VO ms and data_wait of
+                each run and each source's FPS over the reader's. Gate:
+                every run's frames and the tum gates on ATE and PSNR, no
+                twin.
 Then the kernel summary line (K5 / K6 launches also by layout: render
 binning, frozen tracking binning; K1 / K2 at the global shape and
-`launches_global`, the refine's) and the result line. The card line (from
+`launches_global`, the refine's; K1 / K2 at the closer's and the TUM
+shapes) and the result line. The card line (from
 the device phase) comes first.
 
 There is no CPU path: without CUDA the script exits 1 before any result.
@@ -274,9 +316,15 @@ def phase_device():
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     print(card, flush=True)
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "pillow": pillow, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
     return card
 
 
@@ -642,16 +690,18 @@ def phase_kernels(per_wall: int, reps: int):
     ok56, rep56, k56 = _check_entries(cam, gmap, reps, gen)
     summary.update(k56)
     ok_lc, rep_lc, k12_lc = _check_lc_shape(per_wall, reps, gen)
-    for kid, extra in k12_lc.items():
-        summary[kid].update(extra)
-    all_ok &= ok4 and ok56 and ok_lc
+    ok_tum, rep_tum, k12_tum = _check_tum_shape(per_wall, reps, gen)
+    for kid in k12_lc:
+        summary[kid].update(k12_lc[kid])
+        summary[kid].update(k12_tum[kid])
+    all_ok &= ok4 and ok56 and ok_lc and ok_tum
     emit({"phase": "kernels", "ok": all_ok, "shape": {
         "H": 680, "W": 1200, "tile": cfg.tile, "bands": cfg.bands,
         "seg_cap": cfg.seg_cap, "group": GROUP, "tiles": T,
         "npad": int(attrs.shape[1]), "scene_gaussians": n_scene,
         "visible_gaussians": n_vis},
         "tolerances": TOL, **results, "k4": rep4, "entries": rep56,
-        "lc_shape": rep_lc,
+        "lc_shape": rep_lc, "tum_shape": rep_tum,
         "bounds": {k: {f: v[f] for f in ("bound_ms", "bound_by", "bytes",
                                          "ops")}
                    for k, v in summary.items()}})
@@ -666,33 +716,63 @@ def phase_kernels(per_wall: int, reps: int):
 # refines on a quarter of the tiles.
 LC_MAP = 1 << 16
 LC_SUBSET_FRAC = 0.25
+# The TUM RGB-D map camera: configs/TUM_RGBD/tum_rgbd.yaml's calibration
+# cropped by its crop_edge of 50 (540 x 380), at the SLAM loop's tile 32
+# (17 x 12 = 204 tiles), on a map of the config's new-submap seed count
+# (30,000 + 20,000 points); the tracker refines on a quarter of the tiles.
+TUM_CAM = (517.306408, 516.469215, 318.643040, 255.313989, 640, 480)
+TUM_DIST = [0.262383, -0.953104, -0.005358, 0.002628, 1.163314]
+TUM_CROP = 50
+TUM_MAP = 50000
+TUM_SUBSET_FRAC = 0.25
 
 
 def _check_lc_shape(per_wall: int, reps: int, gen):
-    """K1 and K2 at the loop closer's shape against their twins (the
-    tolerances of the main shape), on the full grid and a shuffled subset,
-    each timed with its bound. Returns (ok, report, {kid: {"lc_full": ...,
-    "lc_subset": ...}})."""
-    import torch
-
+    """K1 and K2 at the loop closer's shape (module docstring, kernels)."""
     from eags_slam_torch.core.camera import Camera
-    from eags_slam_torch.ops import composite_sorted as cs
     from eags_slam_torch.ops.rasterizer import RasterConfig
 
     cam = Camera(600.0, 600.0, 599.5, 339.5, 1200, 680).scaled(1)
-    cfg = RasterConfig(tile=16, dup_side=4)
+    return _check_shape("lc", cam, RasterConfig(tile=16, dup_side=4),
+                        LC_MAP, LC_SUBSET_FRAC, per_wall, reps, gen, seed=1)
+
+
+def _check_tum_shape(per_wall: int, reps: int, gen):
+    """K1 and K2 at the TUM RGB-D map camera's shape (540 x 380, tile
+    32, the SLAM loop's dup_side 3)."""
+    from eags_slam_torch.core.camera import Camera
+    from eags_slam_torch.ops.rasterizer import RasterConfig
+
+    cam = Camera(*TUM_CAM).crop(TUM_CROP)
+    cfg = RasterConfig(tile=32, dup_side=3, seg_cap=1024, bands=3)
+    return _check_shape("tum", cam, cfg, TUM_MAP, TUM_SUBSET_FRAC, per_wall,
+                        reps, gen, seed=2)
+
+
+def _check_shape(prefix: str, cam, cfg, n_map: int, subset_frac: float,
+                 per_wall: int, reps: int, gen, seed: int):
+    """K1 and K2 on camera `cam` at raster config `cfg` against their twins
+    (the tolerances of the main shape), on the full grid and a shuffled
+    `subset_frac` of it, each timed with its bound, the twins timed too.
+    Returns (ok, report, {kid: {prefix + "_full": ..., prefix + "_subset":
+    ...}})."""
+    import torch
+
+    from eags_slam_torch.ops import composite_sorted as cs
+
     (attrs, seg_start, seg_cnt, cfg, cam, tiles_x, tiles_y, n_vis, n_map,
-     _) = _kernel_inputs(per_wall, n_map=LC_MAP, seed=1, cam=cam, cfg=cfg)
+     _) = _kernel_inputs(per_wall, n_map=n_map, seed=seed, cam=cam, cfg=cfg)
     T = tiles_x * tiles_y
     ids_all = torch.arange(T, dtype=torch.int32, device="cuda")
     subset = torch.randperm(T, generator=gen, device="cuda")[
-        : round(LC_SUBSET_FRAC * T)].to(torch.int32)
+        : round(subset_frac * T)].to(torch.int32)
     rep = {"shape": {"H": cam.height, "W": cam.width, "tile": cfg.tile,
                      "bands": cfg.bands, "seg_cap": cfg.seg_cap, "tiles": T,
                      "map_gaussians": n_map, "visible_gaussians": n_vis}}
     extra = {"K1": {}, "K2": {}}
     ok = True
-    for label, tile_ids in (("lc_full", ids_all), ("lc_subset", subset)):
+    for label, tile_ids in ((prefix + "_full", ids_all),
+                            (prefix + "_subset", subset)):
         args = (attrs, seg_start, seg_cnt, tile_ids, cfg.tile, tiles_x,
                 cfg.bands, cfg.seg_cap)
         out_k, cols_k = cs.composite_sorted_fwd(*args)
@@ -725,12 +805,15 @@ def _check_lc_shape(per_wall: int, reps: int, gen):
             "tiles": tiles, "ms": k1_ms, "plain_ms": k1_plain,
             "bound_ms": k1_bound["bound_ms"],
             "bound_by": k1_bound["bound_by"],
+            "bound_share": k1_bound["bound_ms"] / k1_ms,
             "max_abs_err": max(rep_f[c]["max_abs"] for c in
                                ("r", "g", "b", "depth", "alpha"))}
         extra["K2"][label] = {
             "tiles": tiles, "ms": k2_ms, "plain_ms": k2_plain,
             "bound_ms": k2_bound["bound_ms"],
-            "bound_by": k2_bound["bound_by"], "max_rel_to_rowmax": worst,
+            "bound_by": k2_bound["bound_by"],
+            "bound_share": k2_bound["bound_ms"] / k2_ms,
+            "max_rel_to_rowmax": worst,
             "max_abs_err": max(rep_b[c]["max_abs"] for c in rep_b
                                if isinstance(rep_b[c], dict))}
         rep[label] = {"fwd_ok": ok_f, "fwd": rep_f, "bwd_ok": ok_b,
@@ -990,12 +1073,13 @@ def _check_entries(cam, gmap, reps, gen):
 
 
 def _run_slam(config, n_frames: int, out_dir: str, phase: str,
-              rcfg_env: str = "", prepare=None):
+              rcfg_env: str = "", prepare=None, dataset=None):
     """Drive GaussianSLAM.run on the config with the launch counts set to 0
     just before and read just after (the main path's, and the loop
     closer's apart); then the port's evaluator. `rcfg_env`: EAGS_RCFG for
     this GaussianSLAM (read when it is built); `prepare(gslam)` runs before
-    the counts are zeroed."""
+    the counts are zeroed; `dataset`: a frame source in place of the
+    config's."""
     import torch
 
     from eags_slam_torch.evaluation.evaluator import Evaluator
@@ -1006,7 +1090,7 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
 
     os.environ["EAGS_RCFG"] = rcfg_env
     try:
-        gslam = GaussianSLAM(config)
+        gslam = GaussianSLAM(config, dataset=dataset)
     finally:
         del os.environ["EAGS_RCFG"]
     try:
@@ -1419,6 +1503,276 @@ def phase_heavy(n_frames: int, lc_dir: str, lc_line, reps: int):
     return line, k12
 
 
+# The real-data phases: 24 frames a sequence, written in a reader's layout
+# and read back through it by the config's own dataset.
+TUM_FRAMES = 24
+REPLICA_FRAMES = 24
+
+
+def _inverse_distortion_maps(cam, dist, keep: int, iters: int = 25):
+    """Where the pre-distorted capture samples the clean image: for each
+    pixel x_d, undistort(x_d) by fixed-point iteration of the forward model
+    (tests/test_reader_roundtrip.py). Also the largest residual |distort(x)
+    - x_d| in pixels over the pixels the crop of `keep` keeps and over the
+    whole image."""
+    import numpy as np
+
+    from eags_slam_torch.datasets import distort_points
+
+    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                       np.arange(cam.height, dtype=np.float64))
+    xyd = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy], -1)
+    xy = xyd.copy()
+    for _ in range(iters):
+        xy = xy + (xyd - distort_points(xy, np.asarray(dist)))
+    res = np.abs(distort_points(xy, np.asarray(dist)) - xyd) * np.array(
+        [cam.fx, cam.fy])
+    res = res.max(-1)
+    return ((cam.fx * xy[..., 0] + cam.cx).astype(np.float32),
+            (cam.fy * xy[..., 1] + cam.cy).astype(np.float32),
+            float(res[keep:-keep, keep:-keep].max()), float(res.max()))
+
+
+def _render_sequence(scene_config, n_frames: int):
+    """n_frames of synthetic_hard rendered on the card at the config's
+    camera, as host arrays: colour uint8, depth float32, GT c2w."""
+    import numpy as np
+
+    from eags_slam_torch.synthetic_hard import SyntheticHard
+
+    cfg = {**scene_config, "frame_limit": n_frames}
+    ds = SyntheticHard(cfg, device="cuda")
+    frames = [ds.frame_u8(i) for i in range(n_frames)]
+    colors = np.stack([c.cpu().numpy() for c, _ in frames])
+    depths = np.stack([d.cpu().numpy() for _, d in frames])
+    poses = np.stack(ds.poses[:n_frames])
+    ds.close()
+    return colors, depths, poses
+
+
+def _run_reader(phase: str, config, n_frames: int, out_dir: str,
+                clean0, card: str):
+    """Drive a reader config through _run_slam; the gates and the line
+    common to the tum and replica phases. `clean0`: frame 0's clean colour
+    (uint8, the uncropped render) for the read-back check over the map
+    camera's pixels."""
+    import numpy as np
+
+    seen = {"vo_shapes": set()}
+
+    def prepare(gslam):
+        ds = gslam.dataset
+        seen["len"] = len(ds)
+        e = ds.crop_edge
+        clean = clean0[e:-e, e:-e] if e else clean0
+        seen["frame0_mean_abs"] = float(np.abs(
+            ds[0][1] - clean.astype(np.float32) / 255.0).mean())
+        step = gslam.odometer.step
+
+        def step_and_record(rgb, depth, timestamp):
+            seen["vo_shapes"].add(tuple(rgb.shape))
+            return step(rgb, depth, timestamp)
+
+        gslam.odometer.step = step_and_record
+
+    ok, line, report, gslam = _run_slam(config, n_frames, out_dir, phase,
+                                        prepare=prepare)
+    la = line["launches"]
+    full = gslam.dataset.full_camera
+    seeds = report["seed_edges"]
+    extra = {
+        "card": card, "dataset": config["data"]["dataset_name"],
+        "sequence_frames": seen["len"],
+        "frame0_mean_abs": seen["frame0_mean_abs"],
+        "map_camera": [gslam.cam.width, gslam.cam.height],
+        "full_camera": [full.width, full.height],
+        "vo_frame_shapes": sorted(seen["vo_shapes"]),
+        "vo_ms": report["vo"]["mean_track_ms"],
+        "vo_keyframes": report["vo"]["n_keyframes"],
+        "seed_edges": seeds,
+        "data_wait_ms": report["data_wait_ms_avg"],
+        "decode_ms": report["data"]["decode_ms_avg"],
+        "frames_decoded": report["data"]["decoded"],
+        "k1_launches_per_frame": la["fwd_launches"] / report["frames"],
+        "k2_launches_per_frame": la["bwd_launches"] / report["frames"],
+        "stage_totals_s": report["stage_totals_s"],
+    }
+    ok &= (seen["len"] == n_frames and seen["frame0_mean_abs"] < 0.02
+           and seeds["canny"] == 0 and seeds["vo"] == line["map_frames"]
+           and seen["vo_shapes"] == {(full.height, full.width, 3)}
+           and la["fwd_launches"] > 0 and la["bwd_launches"] > 0
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0)
+    return ok, {**line, **extra}, gslam
+
+
+def _paeth_decode_ms(root: str, rgb):
+    """The port's PNG decode of one 640 x 480 RGB frame written with Paeth
+    rows, alone on the host (median of 5, host clock), beside Pillow's
+    decode of the same file; the two arrays must be equal."""
+    import numpy as np
+
+    from eags_slam_torch.utils.image_io import read_png, write_png
+
+    path = os.path.join(root, "paeth.png")
+    write_png(path, rgb, 4)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[2], out
+
+    port_ms, img = median_ms(lambda: read_png(path))
+    res = {"port_ms": port_ms, "pillow_ms": None,
+           "equal": bool(np.array_equal(img, rgb))}
+    try:
+        from PIL import Image
+    except ImportError:
+        return res
+    res["pillow_ms"], ref = median_ms(lambda: np.asarray(Image.open(path)))
+    res["equal"] &= bool(np.array_equal(img, ref))
+    return res
+
+
+def phase_tum(out_dir: str, card: str):
+    """The TUM RGB-D reader at the configuration's full size (module
+    docstring, phase tum). Gate: the 24 frames read (the orphan pair
+    rejected), frame 0's undistorted colour within mean abs 0.02 of the
+    clean render over the cropped interior, the pre-distortion converged
+    there, the map camera 540 x 380 and the VO stepped on 640 x 480
+    frames, every mapped frame seeded from the VO's edges (no Canny
+    fallback), K1 / K2 launched and no twin, ATE < 5 cm and PSNR > 19 dB
+    (the synthetic_hard gates)."""
+    import numpy as np
+
+    from eags_slam_torch.config import load_config
+    from eags_slam_torch.core.camera import Camera
+    from eags_slam_torch.datasets import remap_bilinear
+    from eags_slam_torch.utils.layouts import write_tum
+
+    config = load_config("configs/TUM_RGBD/fr1_desk.yaml")
+    if (config["cam"]["crop_edge"] != TUM_CROP
+            or config["cam"]["distortion"] != TUM_DIST):
+        raise SystemExit("tum: configs/TUM_RGBD/fr1_desk.yaml no longer has "
+                         "the crop and distortion this phase writes")
+    scene = load_config("configs/TUM_RGBD/fr1_desk.yaml")
+    scene["data"].update({"dataset_name": "synthetic_hard",
+                          "n_frames": TUM_FRAMES})
+    scene["cam"]["crop_edge"] = 0
+    t0 = time.perf_counter()
+    colors, depths, poses = _render_sequence(scene, TUM_FRAMES)
+    cam = Camera(*TUM_CAM)
+    map_u, map_v, res_kept, res_all = _inverse_distortion_maps(
+        cam, TUM_DIST, TUM_CROP)
+    root = out_dir + "_data"
+    write_tum(root, [remap_bilinear(c, map_u, map_v) for c in colors],
+              depths, poses, depth_dt=0.012, gt_dt=0.004,
+              filters=np.arange(cam.height) % 5, orphan_after=5.0)
+    write_s = time.perf_counter() - t0
+    decode = _paeth_decode_ms(root, colors[0])
+    config["device"] = "cuda"
+    config["data"].update({"input_path": root, "output_path": out_dir})
+    ok, line, _ = _run_reader("tum", config, TUM_FRAMES, out_dir, colors[0],
+                              card)
+    ok &= (line["map_camera"] == [540, 380]
+           and line["full_camera"] == [640, 480] and res_kept < 1e-3)
+    ok &= decode["equal"]
+    emit({**line, "ok": ok, "predistort_residual_px_kept": res_kept,
+          "predistort_residual_px_all": res_all, "render_write_s": write_s,
+          "png_paeth_decode": decode})
+    if not ok:
+        raise SystemExit("tum check failed")
+    return line, config
+
+
+def phase_tum_cost(config, out_dir: str, card: str):
+    """What the reader costs the SLAM loop (module docstring, phase
+    tum_cost): the tum phase's config and files, run through three frame
+    sources in the order reader / cached / decoded / decoded / cached /
+    reader. `reader`: the TUM reader as it is. `cached`: the same reader
+    whose preloader hands over frames decoded beforehand (its thread, its
+    pinned uploads, no decode). `decoded`: an ArrayDataset of the same
+    frames already on the card. Gate: each run's frames, ATE < 5 cm, PSNR
+    > 19 dB, no twin."""
+    import numpy as np
+
+    from eags_slam_torch.datasets import TUM_RGBD, ArrayDataset
+
+    host = TUM_RGBD(config, device="cpu")
+    frames = [host.get_origin_image(i) for i in range(len(host))]
+    host.close()
+
+    class Cached(TUM_RGBD):
+        def _load_raw(self, idx):
+            return frames[idx]
+
+    def source_dataset(source):
+        if source == "cached":
+            return Cached(config)
+        if source == "decoded":
+            ds = ArrayDataset(config, np.stack([c for c, _ in frames]),
+                              np.stack([d for _, d in frames]), host.poses,
+                              device=config["device"])
+            ds.timestamps = list(host.timestamps)
+            return ds
+        return None
+
+    keys = ("fps", "track_ms", "map_ms", "vo_ms", "data_wait_ms",
+            "ate_cm", "psnr_db")
+    order = ("reader", "cached", "decoded", "decoded", "cached", "reader")
+    runs, ok = [], True
+    for k, source in enumerate(order):
+        run_dir = f"{out_dir}_{k}"
+        cfg = {**config, "data": {**config["data"], "output_path": run_dir}}
+        run_ok, line, report, _ = _run_slam(cfg, TUM_FRAMES, run_dir,
+                                            "tum_cost",
+                                            dataset=source_dataset(source))
+        line.update(vo_ms=report["vo"]["mean_track_ms"],
+                    data_wait_ms=report["data_wait_ms_avg"])
+        ok &= run_ok and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0
+        runs.append({"source": source, **{f: line[f] for f in keys}})
+    fps = {s: sum(r["fps"] for r in runs if r["source"] == s)
+           for s in set(order)}
+    emit({"phase": "tum_cost", "ok": ok, "card": card, "runs": runs,
+          "fps_over_reader": {s: fps[s] / fps["reader"]
+                              for s in ("cached", "decoded")}})
+    if not ok:
+        raise SystemExit("tum_cost check failed")
+
+
+def phase_replica(out_dir: str, card: str):
+    """The Replica reader: 24 frames of bench.py's synthetic_hard at
+    1200 x 680 written as Replica's JPEG colour (quality 95), 16-bit depth
+    at 6553.5 and traj.txt, run through configs/Replica/room0.yaml with the
+    heavy evaluation off (the heavy phase covers it). Gate: as tum (the
+    read-back colour is JPEG's within mean abs 0.02; the VO steps on the
+    full frames and decimates them itself), ATE < 5 cm, PSNR > 19 dB."""
+    from eags_slam_torch.config import load_config
+    from eags_slam_torch.utils.layouts import write_replica
+
+    scene = c2f_config(out_dir, REPLICA_FRAMES)
+    t0 = time.perf_counter()
+    colors, depths, poses = _render_sequence(scene, REPLICA_FRAMES)
+    root = out_dir + "_data"
+    write_replica(root, colors, depths, poses, depth_scale=6553.5,
+                  quality=95)
+    write_s = time.perf_counter() - t0
+    config = load_config("configs/Replica/room0.yaml")
+    config["device"] = "cuda"
+    config["data"].update({"input_path": root, "output_path": out_dir})
+    config["evaluation"].update({"eval_mesh": False, "eval_global": False})
+    ok, line, _ = _run_reader("replica", config, REPLICA_FRAMES, out_dir,
+                              colors[0], card)
+    ok &= line["map_camera"] == [1200, 680]
+    emit({**line, "ok": ok, "render_write_s": write_s,
+          "orbit_speed": scene["data"]["orbit_speed"]})
+    if not ok:
+        raise SystemExit("replica check failed")
+    return line
+
+
 def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
     """The slice's protocol on the entry-binned backend (EAGS_RCFG=
     backend=pallas for this run): candidate scoring, frozen-binning
@@ -1450,14 +1804,14 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
                    default="device,build,kernels,slice,window,c2f,lc,"
-                   "heavy,entries,slice_k4")
+                   "heavy,entries,slice_k4,tum,replica")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
     args = p.parse_args()
     phases = set(args.phases.split(","))
 
-    phase_device()
+    card = phase_device()
     import torch
 
     from eags_slam_torch.ops import composite_entries as ce
@@ -1496,6 +1850,15 @@ def main():
     if "slice_k4" in phases:
         runs.append(phase_slice(PER_WALL, N_FRAMES, args.out + "_slice_k4",
                                 slice_line=slice_line, pose_kernel=True))
+    if "tum" in phases:
+        tum_line, tum_config = phase_tum(args.out + "_tum", card)
+        runs.append(tum_line)
+        if "tum_cost" in phases:
+            phase_tum_cost(tum_config, args.out + "_tum_cost", card)
+    elif "tum_cost" in phases:
+        raise SystemExit("tum_cost reads the tum phase's files: run both")
+    if "replica" in phases:
+        runs.append(phase_replica(args.out + "_replica", card))
     kernels = []
     for kid, lkey in LAUNCH_KEYS.items():
         s = summary.get(kid, {})
@@ -1514,7 +1877,8 @@ def main():
              "bound_ms": s.get("bound_ms"),
              "bound_by": s.get("bound_by"), "library_ms": None,
              **{f: s[f] for f in ("run", "subset", "polish", "full",
-                                  "frozen", "lc_full", "lc_subset", "global")
+                                  "frozen", "lc_full", "lc_subset",
+                                  "tum_full", "tum_subset", "global")
                 if f in s}}
         if kid in ("K5", "K6") and runs:
             # K5 / K6 run on two layouts: the render binning and the

@@ -17,20 +17,20 @@ the world frame along the `T_prev_m` chain. Stages:
   - global (`evaluation.eval_global`): the submaps merged, refined with full
     SH (`global_refine_iters`) and rendered at every keyframe into
     `rendering_metrics_global.json`; the refined map's alive rows into
-    `mesh/global_splats.ply`.
+    `mesh/global_splats.ply`;
+  - novel views (a dataset with `test_ids`, ScanNet++): each held-out view
+    rendered from the submap whose keyframes lie nearest to it, PSNR into
+    `nvs_eval/results.json`.
 Both heavy stages also report their stage times (`stage_s`, host clock
 around work that ends in a device sync). Every stage runs on the dataset's
 device. LPIPS needs pretrained weights the repo does not ship, as in the
-JAX package; the ScanNet++ novel-view stage waits for its reader (ROADMAP
-Queue 1 item 13).
+JAX package.
 """
 from __future__ import annotations
 
 import json
 import os
-import struct
 import time
-import zlib
 from glob import glob
 from typing import Dict
 
@@ -43,27 +43,12 @@ from ..ops.losses import ms_ssim, psnr, ssim
 from ..ops.rasterizer import RasterConfig, render
 from ..ops.tsdf import grid_bounds_from_depths, integrate, make_grid
 from ..slam.submap import Submap
+from ..utils.image_io import write_png
 from ..utils.ply import save_gaussian_ply
 from .merged_map import merge_submaps, refine_global_map
 from .mesh import (clean_mesh, load_ply, mesh_metrics, sample_surface,
                    save_ply, surface_nets, unseen_depth_l1)
 from .trajectory import evaluate_trajectory
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> an 8-bit RGB PNG file (zlib, no filter)."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6))
-                + chunk(b"IEND", b""))
 
 
 class Evaluator:
@@ -329,9 +314,46 @@ class Evaluator:
              for k, v in params.as_dict().items()})
         return res
 
+    @torch.no_grad()
+    def run_nvs_eval(self) -> Dict:
+        """ScanNet++ novel-view PSNR on the held-out test views (reference
+        evaluator.py:270-298): each view rendered at its estimated pose from
+        the submap whose nearest keyframe index is closest to it, in the
+        world frame along the `T_prev_m` chain, at the evaluator's raster
+        settings. {} when the dataset holds out no view."""
+        test_ids = sorted(getattr(self.dataset, "test_ids", []) or [])
+        if not test_ids:
+            return {}
+        dev = self.dataset.device
+        submaps = list(self._world_submaps())
+        psnrs = []
+        for fid in test_ids:
+            if fid >= len(self.dataset):
+                continue
+            best = min(range(len(submaps)), key=lambda s: min(
+                abs(int(k) - fid) for k in submaps[s][0].kf_frame_ids))
+            g = {k: torch.as_tensor(v, device=dev)
+                 for k, v in submaps[best][2].items()}
+            out = render(g["xyz"], g["quats"], g["log_scales"],
+                         g["opacity_logits"], sh_to_rgb(g["f_dc"]),
+                         torch.as_tensor(np.linalg.inv(
+                             self.estimated_c2ws[fid]), dtype=torch.float32,
+                             device=dev), self.cam, self.rcfg)
+            gt_color = self.dataset.frame(int(fid))[0]
+            psnrs.append(float(psnr(torch.clamp(out.color, 0, 1), gt_color)))
+        res = {"nvs_psnr": float(np.mean(psnrs)) if psnrs else 0.0,
+               "num_views": len(psnrs)}
+        nvs_dir = os.path.join(self.output_path, "nvs_eval")
+        os.makedirs(nvs_dir, exist_ok=True)
+        with open(os.path.join(nvs_dir, "results.json"), "w") as f:
+            json.dump(res, f, indent=2)
+        return res
+
     def run(self) -> Dict:
         results = {"trajectory": self.run_trajectory_eval(),
                    "rendering": self.run_rendering_eval()}
+        if getattr(self.dataset, "test_ids", None):
+            results["nvs"] = self.run_nvs_eval()
         ev = self.config.get("evaluation", {})
         if ev.get("eval_mesh", False):
             results["reconstruction"] = self.run_reconstruction_eval()

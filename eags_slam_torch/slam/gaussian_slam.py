@@ -17,6 +17,13 @@ the SLAM chain, slam(f-1) @ inv(vo(f-1)) @ vo(f), from frame 3 on; coupled
 mode injects each tracked pose into the VO (`set_pose`). Frames wider than
 800 px run the VO at half resolution unless `vo.downscale_levels` is set.
 
+Frames come from the config's dataset (`datasets.py`): a file-backed
+reader decodes ahead on its preloader thread, started here and stopped by
+`cleanup`; the loop's wait for each frame is the `data_wait` stage. The map
+camera is the dataset's cropped camera (`cam.crop_edge`); the VO reads the
+uncropped frame on the full camera, and its edge map is cropped the same
+way before it seeds.
+
 The rasterizer runs the sorted backend unless `EAGS_RCFG` (comma-separated
 RasterConfig overrides, e.g. `backend=pallas`) says otherwise; the
 `pallas` backend tracks on a frozen entry binning and maps with the plain
@@ -59,7 +66,9 @@ from ..core.camera import Camera
 from ..datasets import get_dataset
 from ..ops.rasterizer import RasterConfig, apply_rcfg_env, check_config
 from ..vo.system import EdgeVO, VOConfig
+from ..vo.system import check_config as vo_check_config
 from . import mapper as M
+from . import tracker as TT
 from .logger import Logger
 from .submap import Submap, pack_state
 from .tracker import Tracker, TrackerConfig
@@ -86,6 +95,99 @@ def _check_slice(config: Dict) -> None:
             "tracking are not ported (ROADMAP Queue 1 item 12)")
 
 
+def raster_config(config: Dict, device: torch.device) -> RasterConfig:
+    """The run's RasterConfig (EAGS_RCFG and EAGS_RMW_WINDOW applied)."""
+    mc = config["mapping"]
+    on_gpu = device.type == "cuda"
+    # `tile_capacity` configures the dense backend, which is not ported.
+    return apply_rcfg_env(RasterConfig(
+        tile=int(mc.get("raster_tile", 32 if on_gpu else 16)),
+        dup_side=int(mc.get("dup_side", 3 if on_gpu else 4)),
+        group=int(mc.get("raster_group", 8)),
+        entry_cap_factor=int(mc.get("entry_cap_factor", 4)),
+        seg_cap=int(mc.get("seg_cap", 1024)),
+        kernel_bf16=bool(mc.get("kernel_bf16", False)),
+        kernel_quadform=bool(mc.get("kernel_quadform", False)),
+        rmw_window=bool(int(os.environ.get(
+            "EAGS_RMW_WINDOW", int(bool(mc.get("rmw_window", False)))))),
+    ))
+
+
+def mapper_config(config: Dict, cam: Camera) -> M.MapperConfig:
+    mc = config["mapping"]
+    return M.MapperConfig(
+        iterations=int(mc["iterations"]),
+        new_submap_iterations=int(mc["new_submap_iterations"]),
+        new_submap_points_num=int(mc["new_submap_points_num"]),
+        new_submap_gradient_points_num=int(
+            mc["new_submap_gradient_points_num"]),
+        new_frame_sample_size=(
+            int(mc["new_frame_sample_size"])
+            if int(mc["new_frame_sample_size"]) > 0
+            else cam.height * cam.width),
+        new_points_radius=float(mc["new_points_radius"]),
+        current_view_opt_iterations=float(
+            mc["current_view_opt_iterations"]),
+        alpha_thre=float(mc["alpha_thre"]),
+        pruning_thre=float(mc["pruning_thre"]),
+        edge_dilate=int(mc.get("edge_dilate_kernel", 2)),
+        outlier_removal=bool(mc.get("outlier_removal", False)),
+        max_keyframes=int(mc.get("max_keyframes", 32)),
+        tile_subset=int(mc.get("tile_subset", 0)),
+        kf_block=int(mc.get("kf_block", 10)),
+        freeze_frac=float(mc.get("freeze_frac", 0.0)),
+        freeze_after=float(mc.get("freeze_after", 0.65)),
+        init_halfres_frac=float(mc.get("init_halfres_frac", 0.0)),
+        init_warm_start=bool(mc.get("init_warm_start", False)),
+        warm_min_visible=int(mc.get("warm_min_visible", 20000)),
+        stale_best_cnt=int(mc.get("stale_best_cnt", 0)),
+    )
+
+
+def tracker_config(config: Dict) -> TrackerConfig:
+    tc = config["tracking"]
+    return TrackerConfig(
+        iterations=int(tc["iterations"]),
+        cam_rot_lr=float(tc["cam_rot_lr"]),
+        cam_trans_lr=float(tc["cam_trans_lr"]),
+        w_color_loss=float(tc["w_color_loss"]),
+        alpha_thre=float(tc["alpha_thre"]),
+        filter_alpha=bool(tc["filter_alpha"]),
+        filter_outlier_depth=bool(tc["filter_outlier_depth"]),
+        soft_alpha=bool(tc["soft_alpha"]),
+        mask_invalid_depth=bool(tc.get("mask_invalid_depth", False)),
+        early_stop_thre=float(tc.get("early_stop_thre", 5.0e-5)),
+        early_stop_cnt=int(tc["early_stop_cnt"]),
+        stale_best_cnt=int(tc.get("stale_best_cnt", 0)),
+        plateau_patience=int(tc.get("scheduler_patience", 5)),
+        plateau_factor=float(tc.get("scheduler_factor", 0.95)),
+        init_err_ratio=float(tc["init_err_ratio"]),
+        enable_exposure=bool(tc.get("enable_exposure", False)),
+        debug_per_iter=bool(tc.get("debug_per_iter", False)),
+        tile_subset_frac=float(tc.get("tile_subset_frac", 0.25)),
+        polish_iters=int(tc.get("polish_iters", 0)),
+        polish_frac=float(tc.get("polish_frac", 1.0)),
+        pose_grad_kernel=bool(tc.get("pose_grad_kernel", False)),
+    )
+
+
+def check_run_config(config: Dict) -> None:
+    """Every guard of a run's config, before anything is built: the
+    branches that are not ported raise NotImplementedError, an unknown
+    dataset name raises KeyError."""
+    _check_slice(config)
+    get_dataset(config["data"]["dataset_name"])
+    check_config(raster_config(config, torch.device(
+        config.get("device", "cuda"))))
+    cam = config["cam"]
+    edge = int(cam.get("crop_edge", 0))
+    M.check_config(mapper_config(config, Camera(
+        cam["fx"], cam["fy"], cam["cx"], cam["cy"], cam["W"],
+        cam["H"]).crop(edge)))
+    TT.check_config(tracker_config(config))
+    vo_check_config(VOConfig.from_dict(config.get("vo", {})))
+
+
 class GaussianSLAM:
     """`dataset`: a frame source to use instead of the config's dataset.
     `draws`: an object replacing the generator-based random draws, with
@@ -101,7 +203,7 @@ class GaussianSLAM:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("config device is 'cuda' but no CUDA device "
                                "is available")
-        _check_slice(config)
+        check_run_config(config)
         self.verbose = bool(config.get("verbose", False))
         self.output_path = config["data"]["output_path"]
         self._setup_output_path()
@@ -120,71 +222,9 @@ class GaussianSLAM:
         self.rot_thre = float(mc.get("new_submap_rot_thre", 50.0))
         self.trans_thre = float(mc.get("new_submap_trans_thre", 0.5))
         self.capacity = int(mc.get("max_gaussians", 1 << 18))
-        on_gpu = self.device.type == "cuda"
-        # `tile_capacity` configures the dense backend, which is not ported.
-        self.rcfg = apply_rcfg_env(RasterConfig(
-            tile=int(mc.get("raster_tile", 32 if on_gpu else 16)),
-            dup_side=int(mc.get("dup_side", 3 if on_gpu else 4)),
-            group=int(mc.get("raster_group", 8)),
-            entry_cap_factor=int(mc.get("entry_cap_factor", 4)),
-            seg_cap=int(mc.get("seg_cap", 1024)),
-            kernel_bf16=bool(mc.get("kernel_bf16", False)),
-            kernel_quadform=bool(mc.get("kernel_quadform", False)),
-            rmw_window=bool(int(os.environ.get(
-                "EAGS_RMW_WINDOW", int(bool(mc.get("rmw_window", False)))))),
-        ))
-        check_config(self.rcfg)
-        self.mcfg = M.MapperConfig(
-            iterations=int(mc["iterations"]),
-            new_submap_iterations=int(mc["new_submap_iterations"]),
-            new_submap_points_num=int(mc["new_submap_points_num"]),
-            new_submap_gradient_points_num=int(
-                mc["new_submap_gradient_points_num"]),
-            new_frame_sample_size=(
-                int(mc["new_frame_sample_size"])
-                if int(mc["new_frame_sample_size"]) > 0
-                else self.cam.height * self.cam.width),
-            new_points_radius=float(mc["new_points_radius"]),
-            current_view_opt_iterations=float(
-                mc["current_view_opt_iterations"]),
-            alpha_thre=float(mc["alpha_thre"]),
-            pruning_thre=float(mc["pruning_thre"]),
-            edge_dilate=int(mc.get("edge_dilate_kernel", 2)),
-            outlier_removal=bool(mc.get("outlier_removal", False)),
-            max_keyframes=int(mc.get("max_keyframes", 32)),
-            tile_subset=int(mc.get("tile_subset", 0)),
-            kf_block=int(mc.get("kf_block", 10)),
-            freeze_frac=float(mc.get("freeze_frac", 0.0)),
-            freeze_after=float(mc.get("freeze_after", 0.65)),
-            init_halfres_frac=float(mc.get("init_halfres_frac", 0.0)),
-            init_warm_start=bool(mc.get("init_warm_start", False)),
-            warm_min_visible=int(mc.get("warm_min_visible", 20000)),
-            stale_best_cnt=int(mc.get("stale_best_cnt", 0)),
-        )
-        M.check_config(self.mcfg)
-        self.tcfg = TrackerConfig(
-            iterations=int(tc["iterations"]),
-            cam_rot_lr=float(tc["cam_rot_lr"]),
-            cam_trans_lr=float(tc["cam_trans_lr"]),
-            w_color_loss=float(tc["w_color_loss"]),
-            alpha_thre=float(tc["alpha_thre"]),
-            filter_alpha=bool(tc["filter_alpha"]),
-            filter_outlier_depth=bool(tc["filter_outlier_depth"]),
-            soft_alpha=bool(tc["soft_alpha"]),
-            mask_invalid_depth=bool(tc.get("mask_invalid_depth", False)),
-            early_stop_thre=float(tc.get("early_stop_thre", 5.0e-5)),
-            early_stop_cnt=int(tc["early_stop_cnt"]),
-            stale_best_cnt=int(tc.get("stale_best_cnt", 0)),
-            plateau_patience=int(tc.get("scheduler_patience", 5)),
-            plateau_factor=float(tc.get("scheduler_factor", 0.95)),
-            init_err_ratio=float(tc["init_err_ratio"]),
-            enable_exposure=bool(tc.get("enable_exposure", False)),
-            debug_per_iter=bool(tc.get("debug_per_iter", False)),
-            tile_subset_frac=float(tc.get("tile_subset_frac", 0.25)),
-            polish_iters=int(tc.get("polish_iters", 0)),
-            polish_frac=float(tc.get("polish_frac", 1.0)),
-            pose_grad_kernel=bool(tc.get("pose_grad_kernel", False)),
-        )
+        self.rcfg = raster_config(config, self.device)
+        self.mcfg = mapper_config(config, self.cam)
+        self.tcfg = tracker_config(config)
         self.gt_camera = bool(tc.get("gt_camera", False))
         self.logger = Logger(self.output_path, self.verbose,
                              config.get("use_wandb", False))
@@ -229,7 +269,12 @@ class GaussianSLAM:
         self.submap_paths: List[str] = []
         self.track_times: List[float] = []
         self.map_times: List[float] = []
-        self.stage_s: Dict[str, float] = {"boundary": 0.0, "lc_drain": 0.0}
+        self.stage_s: Dict[str, float] = {"data_wait": 0.0, "boundary": 0.0,
+                                          "lc_drain": 0.0}
+        # The seeding edges of each mapped frame: the VO's, or Canny's.
+        self.seed_edges = {"vo": 0, "canny": 0}
+        # Last, so that an error above leaves no thread behind.
+        self.dataset.start_prefetch()
 
     # ------------------------------------------------------------------
     def _setup_output_path(self):
@@ -343,8 +388,9 @@ class GaussianSLAM:
     # ------------------------------------------------------------------
     def _vo_edges(self, frame_id: int):
         """The VO's edge map of the frame as the seeding edges, (H, W) bool
-        at full resolution, or None for the Canny fallback (always for
-        ScanNet++, as in the reference)."""
+        on the map camera (the full-resolution map cropped by `crop_edge`),
+        or None for the Canny fallback (always for ScanNet++, as in the
+        reference)."""
         if self.odometer is None or \
                 self.config["data"]["dataset_name"] == "scannetpp":
             return None
@@ -356,6 +402,9 @@ class GaussianSLAM:
         if sy > 1:      # the VO ran decimated: upsample back
             e = e.repeat_interleave(sy, 0).repeat_interleave(sy, 1)
             e = e[: full.height, : full.width]
+        c = self.dataset.crop_edge
+        if c:
+            e = e[c:-c, c:-c]
         if tuple(e.shape) != (self.cam.height, self.cam.width):
             return None
         return e
@@ -376,6 +425,7 @@ class GaussianSLAM:
         gumbels = (self.draws.seed_gumbels(key, seed_as_new, gt_depth.numel())
                    if self.draws is not None else None)
         edges = self._vo_edges(frame_id)
+        self.seed_edges["canny" if edges is None else "vo"] += 1
         rows, row_valid, n_valid, seeding_mask = M.seed_rows(
             self.state.params, self.state.alive, gt_color, gt_depth, c2w32,
             w2c32, edges, self.cam, self.rcfg, self.mcfg, seed_as_new,
@@ -449,7 +499,10 @@ class GaussianSLAM:
                       "frames", flush=True)
                 frames_run = frame_id
                 break
+            t_wait = time.perf_counter()
             gt_color, gt_depth = self.dataset.frame(frame_id)
+            data_wait = time.perf_counter() - t_wait
+            self.stage_s["data_wait"] += data_wait
             gt_pose = np.asarray(self.dataset.poses[frame_id], np.float64)
             t_track = time.perf_counter()
             if frame_id in (0, 1) or self.gt_camera:
@@ -487,6 +540,7 @@ class GaussianSLAM:
                     self.odometer.set_pose(frame_id, c2w)
                 if vo_ms is not None:
                     stats["vo_ms"] = vo_ms
+                stats["data_wait_ms"] = 1e3 * data_wait
                 self.logger.log_tracking(
                     frame_id, {k: float(v) for k, v in stats.items()})
             self._sync()
@@ -537,6 +591,10 @@ class GaussianSLAM:
             "map_ms_avg": 1e3 * float(np.mean(self.map_times))
             if self.map_times else 0,
             "map_frames": len(self.map_times),
+            "data_wait_ms_avg": 1e3 * self.stage_s["data_wait"]
+            / max(frames_run, 1),
+            "data": self.dataset.report(),
+            "seed_edges": dict(self.seed_edges),
             "stage_totals_s": {
                 "track": round(float(np.sum(self.track_times)), 2),
                 "map": round(float(np.sum(self.map_times)), 2),

@@ -134,7 +134,7 @@ class SyntheticHard(BaseDataset):
     depth_noise * depth^2, default 0.002), depth_dropout (default 0.003),
     exposure_amp (default 0.08)."""
 
-    def __init__(self, config: Dict, device="cpu"):
+    def __init__(self, config: Dict, device=None):
         super().__init__(config, device)
         d = config["data"]
         self.n_frames = int(d.get("n_frames", 40))

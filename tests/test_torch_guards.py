@@ -163,10 +163,10 @@ def test_unported_tracker_options_raise(field):
 
 
 # Sections whose first entry is now ported keep their case with an added
-# entry that still raises: the VO pinned to another device, and an edge
-# crop of the synthetic_hard frames (the readers that crop are not
-# ported). Of the rasterizer's options only the K1 kernel options raise.
-# The ported branches run in test_ported_config_branches_run.
+# entry that still raises: the VO pinned to another device. Of the
+# rasterizer's options only the K1 kernel options raise. The ported
+# branches run in test_ported_config_branches_run (an edge crop of the
+# synthetic_hard frames and the Replica reader among them).
 @pytest.mark.parametrize("sections", [
     {"tracking": {"odometry_type": "odometer"}, "vo": {"device": "cpu"}},
     {"tracking": {"help_camera_initialization": True},
@@ -178,8 +178,6 @@ def test_unported_tracker_options_raise(field):
     {"mapping": {"kernel_bf16": True}},
     {"mapping": {"kernel_quadform": True}},
     {"mapping": {"tile_subset": 4}},
-    {"data": {"dataset_name": "synthetic_hard"}, "cam": {"crop_edge": 8}},
-    {"data": {"dataset_name": "replica"}},
 ], ids=lambda s: next(iter(s)) + "." + str(next(iter(s.values()))))
 def test_unported_config_branches_raise(tmp_path, sections):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -192,15 +190,29 @@ _CHEAP = {"mapping": {"iterations": 4, "new_submap_iterations": 8},
           "tracking": {"iterations": 4}}
 
 
+def _write_replica(root, cfg):
+    """The tiny config's synthetic frames in Replica's layout."""
+    from eags_slam_torch.datasets import Synthetic
+    from eags_slam_torch.utils.layouts import write_replica
+
+    ds = Synthetic(cfg, device="cpu")
+    frames = [ds.frame_u8(i) for i in range(len(ds))]
+    write_replica(root, [c.numpy() for c, _ in frames],
+                  [d.numpy() for _, d in frames], ds.poses)
+
+
 @pytest.mark.parametrize("case", [
     "odometer", "odometer_coupled", "help_camera_initialization",
-    "synthetic_hard", "pose_grad_kernel", "rmw_window", "backend_pallas",
-    "lc"])
+    "synthetic_hard", "synthetic_hard.crop_edge", "replica",
+    "pose_grad_kernel", "rmw_window", "backend_pallas", "lc"])
 def test_ported_config_branches_run(tmp_path, monkeypatch, case):
     """The branches that used to raise now run: the edge VO (as the
     odometer, decoupled or coupled, or only scoring its candidate), the
-    synthetic_hard scene, the pose-contraction backward, the windowed
-    backward (`mapping.rmw_window`), the entry-binned backend
+    synthetic_hard scene, an edge crop of its frames (`cam.crop_edge` 8,
+    the VO on the uncropped frames), the Replica reader (the tiny config's
+    frames written as JPEG colour and 16-bit PNG depth), the
+    pose-contraction backward, the windowed backward
+    (`mapping.rmw_window`), the entry-binned backend
     (`EAGS_RCFG=backend=pallas`) and loop closure (`lc.enabled`, its
     worker thread submitting the run's one submap), each through its twins
     on the CPU."""
@@ -212,6 +224,13 @@ def test_ported_config_branches_run(tmp_path, monkeypatch, case):
             "tracking": {"help_camera_initialization": True}},
         "synthetic_hard": {"data": {"dataset_name": "synthetic_hard",
                                     "n_frames": 4}},
+        "synthetic_hard.crop_edge": {
+            "data": {"dataset_name": "synthetic_hard", "n_frames": 4},
+            "tracking": {"odometry_type": "odometer"},
+            "cam": {"crop_edge": 8}},
+        "replica": {"data": {"dataset_name": "replica",
+                             "input_path": str(tmp_path / "replica")},
+                    "cam": {"depth_scale": 6553.5}},
         "pose_grad_kernel": {"tracking": {"pose_grad_kernel": True}},
         "rmw_window": {"mapping": {"rmw_window": True}},
         "backend_pallas": {},
@@ -222,6 +241,8 @@ def test_ported_config_branches_run(tmp_path, monkeypatch, case):
     if case == "backend_pallas":
         monkeypatch.setenv("EAGS_RCFG", "backend=pallas")
     cfg = _tiny(tmp_path, frames=4, **_CHEAP)
+    if case == "replica":
+        _write_replica(tmp_path / "replica", cfg)
     for sec, d in sections.items():
         cfg[sec].update(d)
     # Two intra-op threads: the suite runs in several processes at once.
@@ -237,9 +258,18 @@ def test_ported_config_branches_run(tmp_path, monkeypatch, case):
         gslam.cleanup()
         torch.set_num_threads(threads)
     assert report["frames"] == 4
+    assert gslam.cam == gslam.dataset.full_camera.crop(
+        cfg["cam"]["crop_edge"])
+    if case == "synthetic_hard.crop_edge":
+        # Every mapped frame seeded from the VO's (cropped) edges.
+        assert report["seed_edges"] == {"vo": report["map_frames"],
+                                        "canny": 0}
+    if case == "replica":
+        assert report["data"]["decoded"] >= 4
     cands = report["tracker"]["init_pose_cnt"]
     assert sum(cands.values()) == 2
-    if "odometer" in case or case == "help_camera_initialization":
+    if "odometer" in case or case in ("help_camera_initialization",
+                                      "synthetic_hard.crop_edge"):
         assert report["vo"]["n_keyframes"] >= 1
         assert (tmp_path / "out" / "vo_traj_tum.txt").exists()
     else:
@@ -386,3 +416,103 @@ def test_chip_smoke_refuses_without_card(tmp_path, alone):
                          env=env)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+SCENE_CONFIGS = sorted(p for p in (REPO / "configs").glob("*/*.yaml")
+                       if "scene_name:" in p.read_text())
+
+
+@pytest.mark.parametrize("path", SCENE_CONFIGS,
+                         ids=lambda p: str(p.relative_to(REPO / "configs")))
+def test_scene_configs_pass_port_guards(path, monkeypatch):
+    """Every scene configuration the repo ships passes every guard of the
+    port's GaussianSLAM (its dataset name has a reader, no branch it selects
+    raises NotImplementedError)."""
+    from eags_slam_torch.slam.gaussian_slam import check_run_config
+
+    monkeypatch.delenv("EAGS_RMW_WINDOW", raising=False)
+    monkeypatch.delenv("EAGS_RCFG", raising=False)
+    cfg = load_config(str(path))
+    assert cfg["data"]["dataset_name"] in ("replica", "tum_rgbd", "scannet",
+                                           "scannetpp")
+    check_run_config(cfg)
+    assert len(SCENE_CONFIGS) == 21
+
+
+_NO_PIL = """
+import importlib.abc, sys
+class _NoPil(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("Pillow hidden")
+sys.meta_path.insert(0, _NoPil())
+import eags_slam_torch.datasets as D
+from eags_slam_torch.utils import image_io
+assert "PIL" not in sys.modules
+try:
+    image_io.read_jpeg(sys.argv[1])
+except ImportError as e:
+    print("RAISED", e)
+"""
+
+
+def test_datasets_import_without_pillow(tmp_path):
+    """On a host without Pillow the port's datasets import, and a JPEG read
+    raises ImportError naming the file (no quiet fallback)."""
+    jpg = tmp_path / "frame000000.jpg"
+    jpg.write_bytes(b"\xff\xd8\xff")
+    res = subprocess.run([sys.executable, "-c", _NO_PIL, str(jpg)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "RAISED" in res.stdout and str(jpg) in res.stdout
+    assert "JPEG needs Pillow" in res.stdout
+
+
+def test_cli_runs_reader_config_on_cpu(tmp_path):
+    """`python -m eags_slam_torch.run_slam` on a TUM RGB-D scene config
+    (configs/TUM_RGBD/fr1_desk.yaml, as inherited, at the tiny size: crop
+    6, the distortion of configs/TUM_RGBD, the odometer, loop closure on)
+    given its files with --input_path, then `python -m
+    eags_slam_torch.run_evaluation` on the run's directory."""
+    from eags_slam_torch.run_evaluation import main as run_evaluation
+    from eags_slam_torch.synthetic_hard import SyntheticHard
+    from eags_slam_torch.utils.layouts import write_tum
+
+    cfg = _tiny(tmp_path, frames=3)
+    cfg["data"].update({"dataset_name": "synthetic_hard", "n_frames": 3})
+    ds = SyntheticHard(cfg, device="cpu")
+    frames = [ds.frame_u8(i) for i in range(len(ds))]
+    write_tum(tmp_path / "seq", [c.numpy() for c, _ in frames],
+              [d.numpy() for _, d in frames], ds.poses, filters=4)
+    c = cfg["cam"]
+    (tmp_path / "scene.yaml").write_text(
+        f"inherit_from: {REPO / 'configs/TUM_RGBD/fr1_desk.yaml'}\n"
+        f"cam: {{H: {c['H']}, W: {c['W']}, fx: {c['fx']}, fy: {c['fy']}, "
+        f"cx: {c['cx']}, cy: {c['cy']}, crop_edge: 6}}\n"
+        "mapping: {new_submap_points_num: 2000, "
+        "new_submap_gradient_points_num: 500, new_frame_sample_size: 500, "
+        "max_gaussians: 8192}\n"
+        "vo: {pyramid_levels: 2, canny_low: 40.0, canny_high: 120.0}\n")
+    out = tmp_path / "run"
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-m", "eags_slam_torch.run_slam",
+         str(tmp_path / "scene.yaml"), "--input_path", str(tmp_path / "seq"),
+         "--output_path", str(out), "--device", "cpu",
+         "--mapping_iterations", "4", "--tracking_iterations", "4"],
+        cwd=REPO, capture_output=True, text=True, timeout=600, env=env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    for prefix in ("FPS:", "Track avg:", "ATE-RMSE:"):
+        assert any(line.startswith(prefix) for line in lines), res.stdout
+    with open(out / "log.jsonl") as f:
+        report = [json.loads(r) for r in f if '"report"' in r][-1]
+    assert report["frames"] == 3 and report["data"]["decoded"] >= 3
+    assert report["stage_totals_s"]["data_wait"] >= 0.0
+    assert "lc" in report and report["vo"]["n_keyframes"] >= 1
+    run_evaluation(["--checkpoint_path", str(out), "--device", "cpu"])
+    with open(out / "evaluation.json") as f:
+        results = json.load(f)
+    assert np.isfinite(results["rendering"]["mean_psnr"])
+    assert results["trajectory"]["ate"]["rmse"] < 0.05

@@ -16,8 +16,10 @@ bit and against the K2 chain; K5 at the same tiles and block sizes on a
 scene whose tiles stop at the -11.5 threshold, with K6 on its outputs.
 K1 and K2 also run at the loop closer's shape (tile 16 on 600x340, a
 65,536-gaussian map, the full 836-tile grid and a shuffled 209-tile
-quarter) and at the global refine's (tile 16 on the full 1200x680
-image, 3225 tiles, 300,000 and 1,200,000 gaussians), and a render on a
+quarter), at the TUM RGB-D map camera's (tile 32 on 540x380, the
+204-tile grid and a 51-tile quarter) and at the global refine's (tile 16
+on the full 1200x680 image, 3225 tiles, 300,000 and 1,200,000 gaussians),
+and a render on a
 tagged stream counts its launches apart from the main path's.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
@@ -698,6 +700,40 @@ def test_kernels_at_the_closers_shape(ids_kind, cuda_device):
     dout[:, 5:] = 0
     gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 16, tx)
     gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx)
+    torch.cuda.synchronize()
+    _grads_close(gk, gt)
+
+
+# The TUM RGB-D map camera: configs/TUM_RGBD/tum_rgbd.yaml's calibration
+# cropped by its crop_edge of 50 (540 x 380), the SLAM loop's tile 32
+# (17 x 12 = 204 tiles), a map of the config's new-submap seed count.
+CAM_TUM = Camera(fx=517.306408, fy=516.469215, cx=268.643040,
+                 cy=205.313989, width=540, height=380)
+
+
+@pytest.mark.parametrize("ids_kind", ["full", "quarter"])
+def test_kernels_at_the_tum_shape(ids_kind, cuda_device):
+    """K1 against its twin (survivors, columns, outputs, chunks used) and K2
+    against its twin (1e-3 of each row's max) on the full 204-tile grid and
+    on a shuffled 51-tile quarter (the tracker's subset)."""
+    attrs, ss, sc, tx, num_tiles = _scene_inputs(32, 1024, 50000,
+                                                 cuda_device, seed=5,
+                                                 cam=CAM_TUM)
+    assert num_tiles == 204
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    if ids_kind == "quarter":
+        ids = torch.randperm(num_tiles, generator=gen, device=cuda_device)[
+            :51].to(torch.int32)
+    args = (attrs, ss, sc, ids, 32, tx, 3, 1024)
+    ok, ck = cs.composite_sorted_fwd(*args)
+    ot, ct = cs.composite_sorted_fwd_plain(*args)
+    torch.cuda.synchronize()
+    _fwd_close(ok, ck, ot, ct)
+    dout = torch.randn(ot.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 32, tx)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 32, tx)
     torch.cuda.synchronize()
     _grads_close(gk, gt)
 
