@@ -31,7 +31,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 836-tile grid and a shuffled 209-tile quarter, both timed),
                 and at the TUM RGB-D map camera's (tile 32 on 540x380, a
                 50,000-gaussian map, the full 204-tile grid and the
-                tracker's shuffled 51-tile quarter, both timed);
+                tracker's shuffled 51-tile quarter, both timed); then
+                K1-K4 under kernel_quadform, kernel_bf16 and both on the
+                main shape's full grid and 1/8 subset (K4 on the
+                frozen-sorted layout) against their twins under the same
+                option, K4 twice bit for bit, each variant timed beside the
+                default one with its bound on its own work (quadform
+                operations, the bf16 layout's bytes);
                 max errors against the stated tolerances; median kernel,
                 twin and backward times; each kernel's bound on every timed
                 shape.
@@ -60,7 +66,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 on (off by default, as in the reference): every tracking
                 backward through K4, mapping on K2; the same gates, and the
                 default slice's FPS / track / map ms beside them.
-  9. lc       - bench.py's full protocol (`eags_slam_torch.bench`'s
+  9. slice_opts - the slice's 12 frames with `mapping.kernel_quadform`,
+                `mapping.kernel_bf16` and `tracking.pose_grad_kernel`:
+                tracking through K1 + K4, mapping through K1 + K2, every
+                launch the quadform_bf16 variant (no default-variant launch,
+                no twin); the slice's gates, and FPS / track / map ms / peak
+                memory beside the default slice's.
+ 10. slice_mapopts - the slice's 12 frames with `mapping.tile_subset` 279
+                (a third of the 836 tiles), `mapping.init_halfres_frac`
+                0.25 and `tracking.debug_per_iter`: the half-resolution
+                init at every new submap through K1 / K2 on 600x340 (209
+                tiles), every full-resolution mapped iteration on exactly
+                279 tiles, one per-iteration record (12 columns, as many
+                active rows as the frame's iterations) a tracked frame in
+                log.jsonl; the slice's gates, no twin.
+ 11. lc       - bench.py's full protocol (`eags_slam_torch.bench`'s
                 make_config(72)): 72 frames of synthetic_hard with loop
                 closure on its own thread and CUDA stream (gs_reg through K1
                 / K2 at tile 16, Gauss-Newton PGO on the host); K1 / K2
@@ -72,7 +92,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 < 5 cm, PSNR > 19 dB, at least one closure, its
                 corrections drained into the live pose array and its
                 submaps' files rewritten.
- 10. heavy    - bench.py's heavy evaluation on the lc phase's output
+ 12. heavy    - bench.py's heavy evaluation on the lc phase's output
                 directory (its 72 frames, four submaps, loop-corrected
                 anchors), at the evaluator's settings: K1 and K2 against
                 their twins at the global refine's shape (tile 16 on the
@@ -91,7 +111,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 after, peak memory). Gates: faces > 0, F1 > 0.4, global
                 PSNR > 19 dB, every number finite, no twin, and
                 mesh/global_splats.ply read back with the alive count.
- 11. tum      - the TUM RGB-D reader at configs/TUM_RGBD/fr1_desk.yaml's
+ 13. tum      - the TUM RGB-D reader at configs/TUM_RGBD/fr1_desk.yaml's
                 full size: 24 frames of synthetic_hard rendered at its
                 calibration (640x480), colour pre-distorted with its lens
                 coefficients (the model inverted by fixed-point iteration,
@@ -111,12 +131,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 preloader's decode ms a frame, a Paeth-filtered frame's
                 decode alone (beside Pillow's), peak memory, K1 / K2
                 launches a frame.
- 12. replica  - the Replica reader: 24 frames of bench.py's synthetic_hard
+ 14. replica  - the Replica reader: 24 frames of bench.py's synthetic_hard
                 at 1200x680 written as JPEG colour (quality 95, Pillow),
                 16-bit depth at 6553.5 and traj.txt, run through
                 configs/Replica/room0.yaml with the heavy evaluation off
                 (the heavy phase covers it); the tum phase's gates.
- 13. tum_cost - not run by default (`--phases ...,tum,tum_cost`): what the
+ 15. tum_cost - not run by default (`--phases ...,tum,tum_cost`): what the
                 reader costs the loop. The tum phase's 24 frames run six
                 more times from three sources: the reader (decode on the
                 preloader thread beside the loop), the reader handed the
@@ -127,8 +147,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 each run and each source's FPS over the reader's. Gate:
                 every run's frames and the tum gates on ATE and PSNR, no
                 twin.
-Then the kernel summary line (K5 / K6 launches also by layout: render
-binning, frozen tracking binning; K1 / K2 at the global shape and
+Then the kernel summary line (K1-K4 launches also by variant: default,
+quadform, bf16, quadform_bf16, with each variant's times and bounds; K5 /
+K6 launches also by layout: render binning, frozen tracking binning; K1 / K2 at the global shape and
 `launches_global`, the refine's; K1 / K2 at the closer's and the TUM
 shapes) and the result line. The card line (from
 the device phase) comes first.
@@ -219,6 +240,16 @@ OPS_BOX = 40
 OPS_TEST = 10
 OPS_CONTRIB = {"K1": 16, "K2": 55, "K3": 55, "K4": 47, "K5": 16, "K6": 55}
 OPS_K4_CONTRACT = 84
+# The quadform variants (kernel_quadform): a replayed survivor also needs
+# its six coefficients (17) and the box's widening (13); a boxed pair
+# quad_alpha's 5 multiplies and 5 adds; a contributing pair of the
+# backward the six basis moments (11) in place of the five du / dv terms
+# (22), and a replayed survivor their contraction to five grads (30).
+VARIANTS = ("quadform", "bf16", "quadform_bf16")
+OPS_BOX_QUAD = OPS_BOX + 30
+OPS_TEST_QUAD = 10
+OPS_CONTRIB_QUAD = {"K1": 16, "K2": 44, "K3": 44, "K4": 36}
+OPS_QUAD_CONTRACT = 30
 
 
 # The slice: 17000 gaussians a wall (a 102,000-gaussian room), 12 frames
@@ -454,17 +485,25 @@ def _kernel_inputs(per_wall: int, n_map: int = 150000, seed: int = 0,
             seg_cnt.contiguous(), cfg, cam, tiles_x, tiles_y, n_vis, m, gmap)
 
 
-def _work(attrs, tile_ids, out, cols, tile: int, tiles_x: int):
+def _work(attrs, tile_ids, out, cols, tile: int, tiles_x: int,
+          quadform: bool = False):
     """What this run's data makes a compositing kernel do, in the chunks K1
     processed: pairs, the (pixel, survivor) pairs; boxed, those inside
     their survivor's alpha box; contrib, those whose alpha passed the 1/255
-    test; replayed, the survivors."""
+    test; replayed, the survivors. `quadform`: the quadform variant's
+    alpha and widened box; attrs in the bf16 layout count as rebuilt."""
     import torch
 
-    from eags_slam_torch.ops.composite_sorted import (CHUNK, _chunk_alpha,
+    from eags_slam_torch.ops.composite_sorted import (CHUNK, _as_f32, _basis,
+                                                      _chunk_alpha,
+                                                      _chunk_alpha_quad,
                                                       _chunk_attrs,
                                                       _pixel_coords,
-                                                      alpha_box)
+                                                      _tile_origin,
+                                                      alpha_box,
+                                                      quad_alpha_box)
+
+    attrs = _as_f32(attrs)
 
     eff = out[:, 6, 0].long()
     n_surv = out[:, 7, 0].long()
@@ -481,9 +520,16 @@ def _work(attrs, tile_ids, out, cols, tile: int, tiles_x: int):
             n_valid = torch.where(ci < eff, n_surv - ci * CHUNK,
                                   torch.zeros_like(n_surv))
             e = _chunk_attrs(attrs, cols, ci)
-            alpha = _chunk_alpha(e, pu, pv, n_valid)[0]
+            if quadform:
+                tx0, ty0 = _tile_origin(tile_ids, tile, tiles_x)
+                alpha, _, u_, v_ = _chunk_alpha_quad(
+                    e, _basis(tile, attrs.device), tx0, ty0, n_valid)
+                box = quad_alpha_box(e[0], e[1], e[2], e[3], e[4], e[5], u_,
+                                     v_, tile)
+            else:
+                alpha = _chunk_alpha(e, pu, pv, n_valid)[0]
+                box = alpha_box(e[0], e[1], e[2], e[3], e[4], e[5])
             contrib += int((alpha > 0).sum())
-            box = alpha_box(e[0], e[1], e[2], e[3], e[4], e[5])
             boxed += int(((box[0][:, None] <= pu[:, :, None])
                           & (box[1][:, None] >= pu[:, :, None])
                           & (box[2][:, None] <= pv[:, :, None])
@@ -494,10 +540,17 @@ def _work(attrs, tile_ids, out, cols, tile: int, tiles_x: int):
             "contrib": contrib, "replayed": replayed}
 
 
-def _ops(kernel: str, w: dict) -> int:
-    """FP32 operations `kernel` needs on the work `w` of `_work`."""
-    ops = (OPS_BOX * w["replayed"] + OPS_TEST * w["boxed"]
-           + OPS_CONTRIB[kernel] * w["contrib"])
+def _ops(kernel: str, w: dict, quadform: bool = False) -> int:
+    """FP32 operations `kernel` needs on the work `w` of `_work` (of its
+    quadform variant with `quadform`)."""
+    if quadform:
+        ops = (OPS_BOX_QUAD * w["replayed"] + OPS_TEST_QUAD * w["boxed"]
+               + OPS_CONTRIB_QUAD[kernel] * w["contrib"])
+        if kernel != "K1":
+            ops += OPS_QUAD_CONTRACT * w["replayed"]
+    else:
+        ops = (OPS_BOX * w["replayed"] + OPS_TEST * w["boxed"]
+               + OPS_CONTRIB[kernel] * w["contrib"])
     return ops + (OPS_K4_CONTRACT * w["replayed"] if kernel == "K4" else 0)
 
 
@@ -515,11 +568,12 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _k4_bytes(tile_ids, out, cols) -> int:
-    """The bytes K4 moves on this run's data: attr rows 0-9 and jacobian
-    rows 0-41 of the distinct survivor columns it replays, the replayed
-    part of cols, dout rows 0-4, out row 5 and the two count cells of each
-    tile, tile_ids, and the (S, 8) partial it writes. All 4-byte words."""
+def _k4_bytes(tile_ids, out, cols, attr_bytes: int = 40) -> int:
+    """The bytes K4 moves on this run's data: attr rows 0-9 (`attr_bytes`
+    a column: 40, or 26 from the bf16 layout's 13 rows) and jacobian rows
+    0-41 of the distinct survivor columns it replays, the replayed part of
+    cols, dout rows 0-4, out row 5 and the two count cells of each tile,
+    tile_ids, and the (S, 8) partial it writes; the rest 4-byte words."""
     import torch
 
     from eags_slam_torch.ops.composite_sorted import CHUNK, P_MAX, PJ
@@ -530,9 +584,9 @@ def _k4_bytes(tile_ids, out, cols) -> int:
     lane = torch.arange(cols.shape[1], device=cols.device)
     read = cols[lane[None, :] < replayed[:, None]]
     distinct = int(torch.unique(read).numel())
-    words = ((10 + 7 * PJ) * distinct + read.numel()
+    words = (7 * PJ * distinct + read.numel()
              + s * (6 * px + 2) + s + s * P_MAX)
-    return 4 * words
+    return 4 * words + attr_bytes * distinct
 
 
 def _compare_fwd(out_k, cols_k, out_t, cols_t):
@@ -694,14 +748,20 @@ def phase_kernels(per_wall: int, reps: int):
     for kid in k12_lc:
         summary[kid].update(k12_lc[kid])
         summary[kid].update(k12_tum[kid])
-    all_ok &= ok4 and ok56 and ok_lc and ok_tum
+    ok_var, rep_var, k1234_var = _check_variants(
+        attrs, seg_start, seg_cnt, cfg, cam, tiles_x,
+        {"full": torch.arange(T, dtype=torch.int32, device="cuda"),
+         "subset": subset}, gmap, reps, gen)
+    for kid in k1234_var:
+        summary[kid].update(k1234_var[kid])
+    all_ok &= ok4 and ok56 and ok_lc and ok_tum and ok_var
     emit({"phase": "kernels", "ok": all_ok, "shape": {
         "H": 680, "W": 1200, "tile": cfg.tile, "bands": cfg.bands,
         "seg_cap": cfg.seg_cap, "group": GROUP, "tiles": T,
         "npad": int(attrs.shape[1]), "scene_gaussians": n_scene,
         "visible_gaussians": n_vis},
         "tolerances": TOL, **results, "k4": rep4, "entries": rep56,
-        "lc_shape": rep_lc, "tum_shape": rep_tum,
+        "lc_shape": rep_lc, "tum_shape": rep_tum, "variants": rep_var,
         "bounds": {k: {f: v[f] for f in ("bound_ms", "bound_by", "bytes",
                                          "ops")}
                    for k, v in summary.items()}})
@@ -921,6 +981,126 @@ def _check_k4(cfg, cam, gmap, subset, polish, T, reps, gen):
     return ok, rep, {**summary, **extra}
 
 
+def _check_variants(attrs, seg_start, seg_cnt, cfg, cam, tiles_x, shapes,
+                    gmap, reps, gen):
+    """K1-K4 under kernel_quadform, kernel_bf16 and both at the main-path
+    shape, each on the full grid and the shuffled 1/8 subset (`shapes`):
+    K1 / K2 / K3 on the kernels map and K4 on its frozen-sorted tracking
+    layout, against their twins under the same option (K1's outputs,
+    survivors, columns and chunks used, K2 / K3 grads and K4's dpose at the
+    default tolerances, K4 twice bit for bit), each timed beside the
+    default variant on the same inputs with its bound on its own work: the
+    quadform ops per boxed / contributing pair and replayed survivor, the
+    bf16 layout's bytes. Returns (ok, report, {kid: {"variants":
+    {variant: {shape: ...}}}})."""
+    import torch
+
+    from eags_slam_torch.ops import composite_sorted as cs
+    from eags_slam_torch.ops import rasterizer as R
+
+    xyz, q, log_s, opac, colors, last_w2c = gmap
+    fs = R.freeze_sorted(xyz, q, log_s, opac, colors, last_w2c, cam, cfg)
+    pv = torch.tensor([0.9995, 0.01, -0.02, 0.015, 0.01, -0.02, 0.03],
+                      device="cuda")
+    with torch.no_grad():
+        a4 = R._stack_reproj_rows(fs.e3d, R._pose_rel_w2c(pv, last_w2c), cam,
+                                  cfg).contiguous()
+        jac = R._pose_jacobian(fs.e3d, pv, last_w2c, cam, cfg)
+    ok, rep = True, {}
+    summary = {kid: {"variants": {}} for kid in ("K1", "K2", "K3", "K4")}
+    for label, tile_ids in shapes.items():
+        dout = torch.randn((tile_ids.shape[0], 8, cfg.tile ** 2),
+                           generator=gen, device="cuda")
+        dout[:, 5:] = 0.0
+        for variant in ("default",) + VARIANTS:
+            quad, bf16 = "quadform" in variant, "bf16" in variant
+            a = cs.to_bf16_layout(attrs) if bf16 else attrs
+            a4v = cs.to_bf16_layout(a4) if bf16 else a4
+            fargs = (a, seg_start, seg_cnt, tile_ids, cfg.tile, tiles_x,
+                     cfg.bands, cfg.seg_cap, quad)
+            f4args = (a4v, fs.seg_start, fs.seg_cnt, tile_ids, cfg.tile,
+                      tiles_x, cfg.bands, cfg.seg_cap, quad)
+            out_k, cols_k = cs.composite_sorted_fwd(*fargs)
+            out4, cols4 = cs.composite_sorted_fwd(*f4args)
+            g_k = cs.composite_sorted_bwd(a, tile_ids, out_k, cols_k, dout,
+                                          cfg.tile, tiles_x, quad)
+            g_w = cs.composite_sorted_bwd_window(
+                a, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
+                tiles_x, cfg.bands, cfg.seg_cap, GROUP, quad)
+            d_k = cs.pose_grad_sorted(a4v, jac, tile_ids, out4, cols4, dout,
+                                      cfg.tile, tiles_x, quad)
+            r, err = {"tiles": int(tile_ids.shape[0])}, {}
+            if variant != "default":
+                out_t, cols_t = cs.composite_sorted_fwd_plain(*fargs)
+                out4_t, cols4_t = cs.composite_sorted_fwd_plain(*f4args)
+                g_t = cs.composite_sorted_bwd_plain(a, tile_ids, out_t,
+                                                    cols_t, dout, cfg.tile,
+                                                    tiles_x, quad)
+                d_k2 = cs.pose_grad_sorted(a4v, jac, tile_ids, out4, cols4,
+                                           dout, cfg.tile, tiles_x, quad)
+                d_t = cs.pose_grad_sorted_plain(a4v, jac, tile_ids, out4_t,
+                                                cols4_t, dout, cfg.tile,
+                                                tiles_x, quad)
+                torch.cuda.synchronize()
+                ok_f, rep_f = _compare_fwd(out_k, cols_k, out_t, cols_t)
+                ok_f4, rep_f4 = _compare_fwd(out4, cols4, out4_t, cols4_t)
+                ok_b, rep_b, worst = _compare_bwd(g_k, g_t)
+                ok_w, rep_w, worst_w = _compare_bwd(g_w, g_t)
+                e4 = float((d_k - d_t).abs().max())
+                rel4 = e4 / max(float(d_t.abs().max()), 1e-12)
+                det = bool(torch.equal(d_k, d_k2))
+                ok_v = (ok_f and ok_f4 and ok_b and ok_w and det
+                        and rel4 <= TOL["dpose_rel_to_max"])
+                ok &= ok_v
+                err = {"K1": max(rep_f[c]["max_abs"] for c in
+                                 ("r", "g", "b", "depth", "alpha")),
+                       "K2": max(rep_b[c]["max_abs"] for c in rep_b
+                                 if isinstance(rep_b[c], dict)),
+                       "K3": max(rep_w[c]["max_abs"] for c in rep_w
+                                 if isinstance(rep_w[c], dict)),
+                       "K4": e4}
+                r.update({"ok": ok_v, "fwd": rep_f, "fwd_k4_layout": rep_f4,
+                          "bwd_rel_to_rowmax": worst,
+                          "window_rel_to_rowmax": worst_w,
+                          "k4_rel_to_max": rel4, "k4_deterministic": det})
+            ms = {
+                "K1": _median_ms(lambda: cs.composite_sorted_fwd(*fargs),
+                                 reps),
+                "K2": _median_ms(lambda: cs.composite_sorted_bwd(
+                    a, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x,
+                    quad), reps),
+                "K3": _median_ms(lambda: cs.composite_sorted_bwd_window(
+                    a, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
+                    tiles_x, cfg.bands, cfg.seg_cap, GROUP, quad), reps),
+                "K4": _median_ms(lambda: cs.pose_grad_sorted(
+                    a4v, jac, tile_ids, out4, cols4, dout, cfg.tile,
+                    tiles_x, quad), reps)}
+            work = _work(a, tile_ids, out_k, cols_k, cfg.tile, tiles_x, quad)
+            work4 = _work(a4v, tile_ids, out4, cols4, cfg.tile, tiles_x,
+                          quad)
+            bounds = {
+                "K1": _bound(_nbytes(a, seg_start, seg_cnt, tile_ids, out_k,
+                                     cols_k), _ops("K1", work, quad)),
+                "K2": _bound(_nbytes(a, tile_ids, out_k, cols_k, dout, g_k),
+                             _ops("K2", work, quad)),
+                "K3": _bound(_nbytes(a, seg_start, tile_ids, out_k, cols_k,
+                                     dout, g_w), _ops("K3", work, quad)),
+                "K4": _bound(_k4_bytes(tile_ids, out4, cols4,
+                                       26 if bf16 else 40),
+                             _ops("K4", work4, quad))}
+            for kid in ms:
+                summary[kid]["variants"].setdefault(variant, {})[label] = {
+                    "ms": ms[kid], "bound_ms": bounds[kid]["bound_ms"],
+                    "bound_by": bounds[kid]["bound_by"],
+                    "bound_share": bounds[kid]["bound_ms"] / ms[kid],
+                    "max_abs_err": err.get(kid)}
+            r.update({"ms": ms, "boxed_pairs": work["boxed"],
+                      "contributing_pairs": work["contrib"],
+                      "bounds": bounds})
+            rep[f"{variant}_{label}"] = r
+    return ok, rep, summary
+
+
 def _entries_bytes(start, count, out, grads=None) -> int:
     """The bytes K5 (grads None) or K6 moves on this run's data: rows 0-9 of
     the entry columns in the chunks K5 composited, start and count, and
@@ -1105,6 +1285,7 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
         launches = {**cs.counts(), **ce.counts()}
         launches_lc = {**cs.counts(LC_TAG), **ce.counts(LC_TAG)}
         by_layout = ce.layout_counts()
+        by_variant = cs.variant_counts()
         peak = torch.cuda.max_memory_allocated()
         results = Evaluator(out_dir, gslam.dataset, config).run()
         traj, rend = results["trajectory"], results["rendering"]
@@ -1113,6 +1294,7 @@ def _run_slam(config, n_frames: int, out_dir: str, phase: str,
     line = {"phase": phase, "frames": report["frames"],
             "launches": launches, "launches_lc": launches_lc,
             "launches_by_layout": by_layout,
+            "launches_by_variant": by_variant,
             "ate_cm": 100.0 * traj["ate"]["rmse"],
             "ate_aligned_cm": 100.0 * traj["ate_aligned"]["rmse"],
             "rpe_cm": 100.0 * traj["rpe"]["rpe_trans_rmse"],
@@ -1161,6 +1343,115 @@ def phase_slice(per_wall: int, n_frames: int, out_dir: str,
           **extra})
     if not ok:
         raise SystemExit(phase + " check failed")
+    return line
+
+
+def phase_slice_opts(per_wall: int, n_frames: int, out_dir: str,
+                     slice_line=None):
+    """The slice's frames with `mapping.kernel_quadform`,
+    `mapping.kernel_bf16` and `tracking.pose_grad_kernel`: tracking through
+    K1 + K4 and mapping through K1 + K2, every launch the quadform_bf16
+    variant. Gate: the variant launched for K1, K2 and K4, no launch of a
+    default variant, no twin; every frame ran; ATE < 5 cm and PSNR > 20
+    dB. The default slice's numbers are printed beside these."""
+    config = bench_config(out_dir, n_frames, per_wall)
+    config["mapping"].update({"kernel_quadform": True, "kernel_bf16": True})
+    config["tracking"]["pose_grad_kernel"] = True
+    ok, line, _, gslam = _run_slam(config, n_frames, out_dir, "slice_opts")
+    lv = line["launches_by_variant"]
+    ok &= (gslam.rcfg.kernel_quadform and gslam.rcfg.kernel_bf16
+           and all(lv[k]["quadform_bf16"] > 0 for k in ("K1", "K2", "K4"))
+           and all(lv[k][v] == 0 for k in lv
+                   for v in ("default", "quadform", "bf16"))
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0)
+    emit({**line, "ok": ok, "scene_gaussians": gslam.dataset.n_scene,
+          "default_slice": None if slice_line is None else {
+              k: slice_line[k] for k in ("fps", "track_ms", "map_ms",
+                                         "peak_mem_gb", "ate_cm",
+                                         "psnr_db")}})
+    if not ok:
+        raise SystemExit("slice_opts check failed")
+    return line
+
+
+# The mapper's tile subset in the slice_mapopts phase: a third of the
+# 836-tile grid (the 8-of-24 ratio of tests/test_mapper_subset.py), and
+# the half-resolution init of tests/test_init_halfres.py.
+MAP_TILE_SUBSET = 279
+HALFRES_FRAC = 0.25
+
+
+def phase_slice_mapopts(per_wall: int, n_frames: int, out_dir: str,
+                        slice_line=None):
+    """The slice's frames with `mapping.tile_subset` 279,
+    `mapping.init_halfres_frac` 0.25 and `tracking.debug_per_iter`. The
+    mapper's render_tiles calls are recorded (camera, tiles, K1 launched).
+    Gate: ATE < 5 cm and PSNR > 20 dB; the half-resolution phase ran at
+    every new submap, on the 600x340 camera (all its 209 tiles at tile 32,
+    fewer than the subset) through K1; every mapped iteration at full
+    resolution rendered exactly 279 tiles and the recorded iterations are the mapping records'; one
+    per-iteration record a tracked frame in log.jsonl, 12 columns, as many
+    active rows as the frame's iterations; no twin."""
+    from eags_slam_torch.ops import composite_sorted as cs
+    from eags_slam_torch.slam import mapper as M
+
+    config = bench_config(out_dir, n_frames, per_wall)
+    config["mapping"].update({"tile_subset": MAP_TILE_SUBSET,
+                              "init_halfres_frac": HALFRES_FRAC})
+    config["tracking"]["debug_per_iter"] = True
+    calls = []
+    render_tiles = M.render_tiles
+
+    def recording(*args, **kw):
+        cam, before = args[7], cs.counts()["fwd_launches"]
+        out = render_tiles(*args, **kw)
+        calls.append((cam.width, cam.height, int(args[6].shape[0]),
+                      cs.counts()["fwd_launches"] > before))
+        return out
+
+    M.render_tiles = recording
+    try:
+        ok, line, _, gslam = _run_slam(config, n_frames, out_dir,
+                                       "slice_mapopts",
+                                       prepare=lambda g: calls.clear())
+    finally:
+        M.render_tiles = render_tiles
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        log = [json.loads(r) for r in f]
+    maps = [r for r in log if r["kind"] == "mapping"]
+    track = {r["frame"]: r for r in log if r["kind"] == "tracking"}
+    per = {r["frame_id"]: r for r in log if r["kind"] == "track_iters"}
+    w, h = gslam.cam.width, gslam.cam.height
+    half = [c for c in calls if (c[0], c[1]) == (w // 2, h // 2)]
+    full = [c for c in calls if (c[0], c[1]) == (w, h)]
+    ts = gslam.rcfg.tile
+    n_half_tiles = -(-(w // 2) // ts) * -(-(h // 2) // ts)
+    iters_ok = all(
+        len(r["iters"]) == 2 * gslam.tcfg.iterations
+        and len(r["names"]) == len(r["iters"][0]) == 12
+        and sum(row[4] for row in r["iters"]) == track[f]["iters"]
+        for f, r in per.items())
+    new_ok = all(m["halfres_iters"] > 0 for m in maps if m["is_new"])
+    ok &= (len(half) + len(full) == len(calls)
+           and len(calls) == sum(m["iterations"] for m in maps)
+           and sum(m["halfres_iters"] for m in maps) == len(half) > 0
+           and new_ok and all(c[2] == n_half_tiles and c[3] for c in half)
+           and all(c[2] == MAP_TILE_SUBSET and c[3] for c in full)
+           and set(per) == set(track) and iters_ok
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0)
+    emit({**line, "ok": ok, "scene_gaussians": gslam.dataset.n_scene,
+          "mapped_iterations": {"full_res": len(full), "half_res": len(half),
+                                "tiles_full": sorted({c[2] for c in full}),
+                                "tiles_half": sorted({c[2] for c in half})},
+          "halfres_iters": [m["halfres_iters"] for m in maps],
+          "new_submaps": sum(1 for m in maps if m["is_new"]),
+          "track_iters_records": len(per),
+          "default_slice": None if slice_line is None else {
+              k: slice_line[k] for k in ("fps", "track_ms", "map_ms",
+                                         "peak_mem_gb", "ate_cm",
+                                         "psnr_db")}})
+    if not ok:
+        raise SystemExit("slice_mapopts check failed")
     return line
 
 
@@ -1457,6 +1748,7 @@ def phase_heavy(n_frames: int, lc_dir: str, lc_line, reps: int):
         launches_lc = {**cs.counts(LC_TAG), **ce.counts(LC_TAG)}
         launches_global = {**cs.counts("global"), **ce.counts("global")}
         by_layout = ce.layout_counts()
+        by_variant = cs.variant_counts()
     finally:
         dataset.close()
     splats = load_gaussian_ply(os.path.join(lc_dir, "mesh",
@@ -1465,7 +1757,7 @@ def phase_heavy(n_frames: int, lc_dir: str, lc_line, reps: int):
     line = {
         "phase": "heavy", "launches": launches, "launches_lc": launches_lc,
         "launches_global": launches_global, "launches_by_layout": by_layout,
-        "dataset_s": dataset_s,
+        "launches_by_variant": by_variant, "dataset_s": dataset_s,
         "recon": {k: rec[k] for k in (
             "grid_dims", "n_keyframes", "integrate_ms", "stage_s",
             "n_vertices", "n_faces", "gt_source", "accuracy", "completion",
@@ -1804,7 +2096,8 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
                    default="device,build,kernels,slice,window,c2f,lc,"
-                   "heavy,entries,slice_k4,tum,replica")
+                   "heavy,entries,slice_k4,slice_opts,slice_mapopts,tum,"
+                   "replica")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -1815,6 +2108,7 @@ def main():
     import torch
 
     from eags_slam_torch.ops import composite_entries as ce
+    from eags_slam_torch.ops import composite_sorted as cs
 
     phase_build(args.ptxas)
     summary = phase_kernels(PER_WALL, REPS) if "kernels" in phases else {}
@@ -1850,6 +2144,13 @@ def main():
     if "slice_k4" in phases:
         runs.append(phase_slice(PER_WALL, N_FRAMES, args.out + "_slice_k4",
                                 slice_line=slice_line, pose_kernel=True))
+    if "slice_opts" in phases:
+        runs.append(phase_slice_opts(PER_WALL, N_FRAMES,
+                                     args.out + "_slice_opts", slice_line))
+    if "slice_mapopts" in phases:
+        runs.append(phase_slice_mapopts(PER_WALL, N_FRAMES,
+                                        args.out + "_slice_mapopts",
+                                        slice_line))
     if "tum" in phases:
         tum_line, tum_config = phase_tum(args.out + "_tum", card)
         runs.append(tum_line)
@@ -1878,7 +2179,8 @@ def main():
              "bound_by": s.get("bound_by"), "library_ms": None,
              **{f: s[f] for f in ("run", "subset", "polish", "full",
                                   "frozen", "lc_full", "lc_subset",
-                                  "tum_full", "tum_subset", "global")
+                                  "tum_full", "tum_subset", "global",
+                                  "variants")
                 if f in s}}
         if kid in ("K5", "K6") and runs:
             # K5 / K6 run on two layouts: the render binning and the
@@ -1886,6 +2188,11 @@ def main():
             k["launches_by_layout"] = {
                 lay: sum(r["launches_by_layout"][kid][lay] for r in runs)
                 for lay in ce.LAYOUTS}
+        elif runs:
+            # K1-K4 by variant: default, quadform, bf16, quadform_bf16.
+            k["launches_by_variant"] = {
+                v: sum(r["launches_by_variant"][kid][v] for r in runs)
+                for v in cs.VARIANTS}
         kernels.append(k)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -48,6 +48,14 @@
 //    nonzero: neighbouring tiles and quadrants
 //    share gaussians, so the cross-block order, and the last bits, vary
 //    from run to run (~1e-6 relative).
+//  - The JAX options kernel_quadform and kernel_bf16 are the variants
+//    <QUAD, BF16> (`opts` bits 0 and 1) of the kernel, for every tile
+//    shape (warp_patch.cuh): BF16 stages from the bf16 attr layout and
+//    rebuilds float32 exactly; QUAD stages the quadform coefficients
+//    beside the attrs in 4 KB of dynamic shared memory (the static arrays
+//    fill 48 KB), replays with quad_alpha, and sums 11 terms a pair (the
+//    six basis moments in place of the five du / dv terms), contracted to
+//    the five geometry grads per survivor after the warp reduction.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,9 +69,9 @@ using eags::NG;
 using eags::OUT_CH;
 using eags::region;
 
-template <int TILE, int PPT>
+template <int TILE, int PPT, bool QUAD, bool BF16>
 __global__ void __launch_bounds__(region(TILE) * region(TILE) / PPT)
-bwd_kernel(const float* __restrict__ attrs, int64_t npad,
+bwd_kernel(const eags::AttrT<BF16>* __restrict__ attrs, int64_t npad,
            const int* __restrict__ tile_ids, int tiles_x, int capt,
            const float* __restrict__ out, const int* __restrict__ cols,
            const float* __restrict__ dout, float* __restrict__ grads) {
@@ -81,6 +89,9 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
   __shared__ float s_warp[NWARPS][NG][CHUNK];
   __shared__ int s_col[CHUNK];
   __shared__ unsigned s_wmask[NWARPS][MASK_WORDS];
+  // QUAD: [QROWS][CHUNK], the staged survivors' coefficients and means.
+  extern __shared__ float s_dynq[];
+  float (*s_q)[CHUNK] = reinterpret_cast<float (*)[CHUNK]>(s_dynq);
 
   const int s = blockIdx.y;
   const int part = blockIdx.x;
@@ -96,11 +107,12 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
   const int eff = (int)o[6 * px];
   const int n_surv = (int)o[7 * px];
 
+  const int x0 = (part % PARTS) * RS + (warp % NWX) * 8;
+  const int y0 = (part / PARTS) * RS + (warp / NWX) * PATCH_H;
   eags::Patch<PPT> P;
-  eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0,
-                              (part % PARTS) * RS + (warp % NWX) * 8,
-                              (part / PARTS) * RS + (warp / NWX) * PATCH_H,
-                              lane);
+  eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0, x0, y0, lane);
+  eags::QuadBasis<PPT> B;
+  if constexpr (QUAD) eags::quad_basis_init(B, x0, y0, lane);
 
   for (int ci = eff - 1; ci >= 0; --ci) {
     const int base = ci * CHUNK;
@@ -108,14 +120,16 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
     __syncthreads();
     if (tid < jmax) {
       const int col = cols[(int64_t)s * capt + base + tid];
-      eags::stage(s_attr, s_box, tid, attrs, npad, col);
+      eags::stage<QUAD, BF16>(s_attr, s_box, tid, attrs, npad, col, s_q, tx0,
+                              ty0, (float)TILE);
       s_col[tid] = col;
     }
     __syncthreads();
 
     unsigned wm[MASK_WORDS];
-    eags::walk_chunk(P, s_attr, s_box, jmax, lane, wm,
-                     [&](int j, int ch, float v) { s_warp[warp][ch][j] = v; });
+    eags::walk_chunk<NG, QUAD>(
+        P, s_attr, s_box, jmax, lane, wm,
+        [&](int j, int ch, float v) { s_warp[warp][ch][j] = v; }, B, s_q);
     eags::store_mask(s_wmask[warp], lane, wm);
     __syncthreads();
     for (int i = tid; i < NG * CHUNK; i += NT) {
@@ -128,15 +142,51 @@ bwd_kernel(const float* __restrict__ attrs, int64_t npad,
   }
 }
 
-template <int TILE, int PPT>
-int launch(const float* attrs, int64_t npad, const int* tile_ids, int n_sel,
-           int tiles_x, int capt, const float* out, const int* cols,
-           const float* dout, float* grads, cudaStream_t st) {
+template <int TILE, int PPT, bool QUAD, bool BF16>
+int launch_variant(const void* attrs, int64_t npad, const int* tile_ids,
+                   int n_sel, int tiles_x, int capt, const float* out,
+                   const int* cols, const float* dout, float* grads,
+                   cudaStream_t st) {
   constexpr int RS = region(TILE);
   const dim3 grid((TILE / RS) * (TILE / RS), n_sel);
-  bwd_kernel<TILE, PPT><<<grid, RS * RS / PPT, 0, st>>>(
-      attrs, npad, tile_ids, tiles_x, capt, out, cols, dout, grads);
+  const size_t dyn = QUAD ? eags::QROWS * CHUNK * sizeof(float) : 0;
+  if (dyn) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bwd_kernel<TILE, PPT, QUAD, BF16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  bwd_kernel<TILE, PPT, QUAD, BF16><<<grid, RS * RS / PPT, dyn, st>>>(
+      static_cast<const eags::AttrT<BF16>*>(attrs), npad, tile_ids, tiles_x,
+      capt, out, cols, dout, grads);
   return (int)cudaGetLastError();
+}
+
+// The variant `opts` names: bit 0 QUAD, bit 1 BF16.
+template <int TILE, int PPT>
+int launch(const void* attrs, int64_t npad, const int* tile_ids, int n_sel,
+           int tiles_x, int capt, const float* out, const int* cols,
+           const float* dout, float* grads, int opts, cudaStream_t st) {
+  switch (opts) {
+    case 0:
+      return launch_variant<TILE, PPT, false, false>(
+          attrs, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout, grads,
+          st);
+    case 1:
+      return launch_variant<TILE, PPT, true, false>(
+          attrs, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout, grads,
+          st);
+    case 2:
+      return launch_variant<TILE, PPT, false, true>(
+          attrs, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout, grads,
+          st);
+    case 3:
+      return launch_variant<TILE, PPT, true, true>(
+          attrs, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout, grads,
+          st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -145,23 +195,23 @@ int launch(const float* attrs, int64_t npad, const int* tile_ids, int n_sel,
 // has more tiles than the card has SMs, of one (256 threads) when it has no
 // more, as the tracker's 1/8 subset.
 extern "C" int eags_composite_sorted_bwd(
-    const float* attrs, int64_t npad, const int* tile_ids, int n_sel,
+    const void* attrs, int64_t npad, const int* tile_ids, int n_sel,
     int tile, int tiles_x, int capt, const float* out, const int* cols,
-    const float* dout, float* grads, void* stream) {
+    const float* dout, float* grads, int opts, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 16:
       return launch<16, 1>(attrs, npad, tile_ids, n_sel, tiles_x, capt, out,
-                           cols, dout, grads, st);
+                           cols, dout, grads, opts, st);
     case 32:
       if (n_sel <= eags::sm_count())
         return launch<32, 1>(attrs, npad, tile_ids, n_sel, tiles_x, capt,
-                             out, cols, dout, grads, st);
+                             out, cols, dout, grads, opts, st);
       return launch<32, 2>(attrs, npad, tile_ids, n_sel, tiles_x, capt, out,
-                           cols, dout, grads, st);
+                           cols, dout, grads, opts, st);
     case 64:
       return launch<64, 4>(attrs, npad, tile_ids, n_sel, tiles_x, capt, out,
-                           cols, dout, grads, st);
+                           cols, dout, grads, opts, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -54,6 +54,11 @@
 //    bits vary from run to run.
 //  - The run is at most `group` tiles; the wrapper (window_run) takes one
 //    tile a cluster, since longer runs measured slower (PERF.md).
+//  - The JAX options kernel_quadform and kernel_bf16 (which the TPU's
+//    windowed backward takes as K2 does) are the variants <QUAD, BF16>
+//    (`opts` bits 0 and 1): K2's staging and replay variants
+//    (warp_patch.cuh), the quadform coefficients in 4 KB more of the
+//    dynamic shared memory, after the rings.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,10 +120,10 @@ __device__ __forceinline__ void retire(float* win, int b, int base, int n,
   }
 }
 
-template <int TILE, bool FEW>
+template <int TILE, bool FEW, bool QUAD, bool BF16>
 __global__ void __launch_bounds__(Region<TILE, FEW>::W * Region<TILE, FEW>::H /
                                   Region<TILE, FEW>::PPT)
-bwd_window_kernel(const float* __restrict__ attrs, int64_t npad,
+bwd_window_kernel(const eags::AttrT<BF16>* __restrict__ attrs, int64_t npad,
                   const int* __restrict__ seg_start, int bands, int seg_cap,
                   const int* __restrict__ tile_ids, int n_sel, int run,
                   int tiles_x, int capt, const float* __restrict__ out,
@@ -155,6 +160,10 @@ bwd_window_kernel(const float* __restrict__ attrs, int64_t npad,
   const int q = seg_cap / NC;
   const int s0 = blockIdx.y * run;
   const int s1 = min(s0 + run, n_sel);
+  // QUAD: [QROWS][CHUNK] after the rings, the staged survivors'
+  // coefficients and means.
+  float (*s_q)[CHUNK] =
+      reinterpret_cast<float (*)[CHUNK]>(s_win + bands * NG * q);
 
   for (int i = tid; i < bands * NG * q; i += NT) s_win[i] = 0.0f;
   if (tid < bands) {
@@ -187,11 +196,12 @@ bwd_window_kernel(const float* __restrict__ attrs, int64_t npad,
     const float* g = dout + (int64_t)s * OUT_CH * px;
     const int eff = (int)o[6 * px];
     const int n_surv = (int)o[7 * px];
+    const int x0 = (rank % NCX) * R::W + (warp % NWX) * 8;
+    const int y0 = (rank / NCX) * R::H + (warp / NWX) * PATCH_H;
     eags::Patch<PPT> P;
-    eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0,
-                                (rank % NCX) * R::W + (warp % NWX) * 8,
-                                (rank / NCX) * R::H + (warp / NWX) * PATCH_H,
-                                lane);
+    eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0, x0, y0, lane);
+    eags::QuadBasis<PPT> B;
+    if constexpr (QUAD) eags::quad_basis_init(B, x0, y0, lane);
 
     // Every pass ends at a barrier, so staging needs none before it.
     for (int ci = eff - 1; ci >= 0; --ci) {
@@ -199,7 +209,8 @@ bwd_window_kernel(const float* __restrict__ attrs, int64_t npad,
       const int jmax = min(CHUNK, n_surv - cbase);
       if (tid < jmax) {
         const int col = cols[(int64_t)s * capt + cbase + tid];
-        eags::stage(s_attr, s_box, tid, attrs, npad, col);
+        eags::stage<QUAD, BF16>(s_attr, s_box, tid, attrs, npad, col, s_q,
+                                tx0, ty0, (float)TILE);
         int slot = -1;
         for (int b = 0; b < bands && slot < 0; ++b) {
           const int lo = s_base[b];
@@ -215,10 +226,12 @@ bwd_window_kernel(const float* __restrict__ attrs, int64_t npad,
       eags::patch_ballot(P, s_box, jmax, lane, wm);
       for (int hi = MASK_WORDS - 1; hi >= 0; hi -= WORDS) {
         const int lo = hi - WORDS + 1;
-        eags::walk_words(P, s_attr, lane, wm, hi, lo,
-                         [&](int j, int ch, float v) {
-                           s_warp[(warp * NG + ch) * SLOTS + j % SLOTS] = v;
-                         });
+        eags::walk_words<NG, QUAD>(
+            P, s_attr, lane, wm, hi, lo,
+            [&](int j, int ch, float v) {
+              s_warp[(warp * NG + ch) * SLOTS + j % SLOTS] = v;
+            },
+            B, s_q);
         eags::store_mask(s_wmask[warp], lane, wm);
         __syncthreads();
         // Survivors of one tile have distinct columns, so no two (c, j) of
@@ -249,18 +262,22 @@ bwd_window_kernel(const float* __restrict__ attrs, int64_t npad,
     retire<NT, NC>(s_win, b, s_base[b], seg_cap, seg_cap, rank, npad, grads);
 }
 
-template <int TILE, bool FEW>
-int launch(const float* attrs, int64_t npad, const int* seg_start, int bands,
-           int seg_cap, const int* tile_ids, int n_sel, int run, int tiles_x,
-           int capt, const float* out, const int* cols, const float* dout,
-           float* grads, cudaStream_t st) {
+template <int TILE, bool FEW, bool QUAD, bool BF16>
+int launch_variant(const void* attrs_v, int64_t npad, const int* seg_start,
+                   int bands, int seg_cap, const int* tile_ids, int n_sel,
+                   int run, int tiles_x, int capt, const float* out,
+                   const int* cols, const float* dout, float* grads,
+                   cudaStream_t st) {
   using R = Region<TILE, FEW>;
   constexpr int NC = (TILE / R::W) * (TILE / R::H);
   constexpr int NT = R::W * R::H / R::PPT;
+  const auto* attrs = static_cast<const eags::AttrT<BF16>*>(attrs_v);
   const size_t smem = ((size_t)(NT / 32) * NG * SLOTS +
-                       (size_t)bands * NG * (seg_cap / NC)) * sizeof(float);
+                       (size_t)bands * NG * (seg_cap / NC) +
+                       (QUAD ? (size_t)eags::QROWS * CHUNK : 0)) *
+                      sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_window_kernel<TILE, FEW>,
+      bwd_window_kernel<TILE, FEW, QUAD, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -275,11 +292,39 @@ int launch(const float* attrs, int64_t npad, const int* seg_start, int bands,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bwd_window_kernel<TILE, FEW>, attrs, npad,
-                           seg_start, bands, seg_cap, tile_ids, n_sel, run,
-                           tiles_x, capt, out, cols, dout, grads);
+  err = cudaLaunchKernelEx(&cfg, bwd_window_kernel<TILE, FEW, QUAD, BF16>,
+                           attrs, npad, seg_start, bands, seg_cap, tile_ids,
+                           n_sel, run, tiles_x, capt, out, cols, dout, grads);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The variant `opts` names: bit 0 QUAD, bit 1 BF16.
+template <int TILE, bool FEW>
+int launch(const void* attrs, int64_t npad, const int* seg_start, int bands,
+           int seg_cap, const int* tile_ids, int n_sel, int run, int tiles_x,
+           int capt, const float* out, const int* cols, const float* dout,
+           float* grads, int opts, cudaStream_t st) {
+  switch (opts) {
+    case 0:
+      return launch_variant<TILE, FEW, false, false>(
+          attrs, npad, seg_start, bands, seg_cap, tile_ids, n_sel, run,
+          tiles_x, capt, out, cols, dout, grads, st);
+    case 1:
+      return launch_variant<TILE, FEW, true, false>(
+          attrs, npad, seg_start, bands, seg_cap, tile_ids, n_sel, run,
+          tiles_x, capt, out, cols, dout, grads, st);
+    case 2:
+      return launch_variant<TILE, FEW, false, true>(
+          attrs, npad, seg_start, bands, seg_cap, tile_ids, n_sel, run,
+          tiles_x, capt, out, cols, dout, grads, st);
+    case 3:
+      return launch_variant<TILE, FEW, true, true>(
+          attrs, npad, seg_start, bands, seg_cap, tile_ids, n_sel, run,
+          tiles_x, capt, out, cols, dout, grads, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -287,10 +332,10 @@ int launch(const float* attrs, int64_t npad, const int* seg_start, int bands,
 // `group` is the run: the tiles one cluster replays (the wrapper's
 // window_run).
 extern "C" int eags_composite_sorted_bwd_window(
-    const float* attrs, int64_t npad, const int* seg_start, int bands,
+    const void* attrs, int64_t npad, const int* seg_start, int bands,
     int seg_cap, const int* tile_ids, int n_sel, int group, int tile,
     int tiles_x, int capt, const float* out, const int* cols,
-    const float* dout, float* grads, void* stream) {
+    const float* dout, float* grads, int opts, void* stream) {
   if (bands > MAX_BANDS || group < 1 || seg_cap % CHUNK != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -298,19 +343,19 @@ extern "C" int eags_composite_sorted_bwd_window(
     case 16:
       return launch<16, true>(attrs, npad, seg_start, bands, seg_cap,
                               tile_ids, n_sel, group, tiles_x, capt, out,
-                              cols, dout, grads, st);
+                              cols, dout, grads, opts, st);
     case 32:
       if (n_sel <= eags::sm_count())
         return launch<32, true>(attrs, npad, seg_start, bands, seg_cap,
                                 tile_ids, n_sel, group, tiles_x, capt, out,
-                                cols, dout, grads, st);
+                                cols, dout, grads, opts, st);
       return launch<32, false>(attrs, npad, seg_start, bands, seg_cap,
                                tile_ids, n_sel, group, tiles_x, capt, out,
-                               cols, dout, grads, st);
+                               cols, dout, grads, opts, st);
     case 64:
       return launch<64, true>(attrs, npad, seg_start, bands, seg_cap,
                               tile_ids, n_sel, group, tiles_x, capt, out,
-                              cols, dout, grads, st);
+                              cols, dout, grads, opts, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

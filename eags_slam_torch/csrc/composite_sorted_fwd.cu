@@ -39,6 +39,18 @@
 //    shared memory with a shared counter and ordered by a block-wide
 //    bitonic sort of their unique 32-bit keys (the TPU rank order); the
 //    sorted columns are written out (S, capt) for the backward replay.
+//  - The JAX options kernel_quadform and kernel_bf16 are the variants
+//    <QUAD, BF16> of the kernel (`opts` bits 0 and 1), instantiated for
+//    every tile shape: BF16 reads the bf16 attr layout (14 of the 16 bytes
+//    the coverage test reads, 26 of the 40 a staged survivor needs) and
+//    rebuilds float32 exactly; QUAD stages each survivor's quadform
+//    coefficients beside its attrs, in dynamic shared memory (4 KB; the
+//    default variant launches without it), and composites with
+//    quad_alpha (warp_patch.cuh). A simple variant: the TPU's reason for
+//    the quadform (one MXU matmul in place of ~15 VPU operations a pair)
+//    has no counterpart in a kernel that culls pairs by box; here a boxed
+//    pair costs quad_alpha's 5 multiplies and 5 adds, where twin_alpha
+//    takes 2 subtractions, 7 multiplies and 2 adds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,9 +66,9 @@ constexpr int KEY_PAD = 0x7fffffff;
 // Three 512-thread blocks (two pixels a thread) share an SM: registers are
 // held to 40 a thread for them (left free, the compiler took 53 and fit
 // two: 10% slower, PERF.md).
-template <int TILE, int PPT>
+template <int TILE, int PPT, bool QUAD, bool BF16>
 __global__ void __launch_bounds__(TILE * TILE / PPT, PPT == 2 ? 3 : 1)
-fwd_kernel(const float* __restrict__ attrs, int64_t npad,
+fwd_kernel(const eags::AttrT<BF16>* __restrict__ attrs, int64_t npad,
            const int* __restrict__ seg_start, const int* __restrict__ seg_cnt,
            const int* __restrict__ tile_ids, int tiles_x, int bands,
            int seg_cap, float* __restrict__ out, int* __restrict__ cols_out) {
@@ -69,6 +81,9 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
   __shared__ float s_attr[10][CHUNK];
   __shared__ float4 s_box[CHUNK];
   __shared__ int s_count;
+  // QUAD: [QROWS][CHUNK], the staged survivors' coefficients and means.
+  extern __shared__ float s_dynq[];
+  float (*s_q)[CHUNK] = reinterpret_cast<float (*)[CHUNK]>(s_dynq);
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
@@ -91,10 +106,21 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
     const int cnt = min(seg_cnt[tc * bands + b], seg_cap - lead);
     for (int i = tid; i < cnt; i += NT) {
       const int col = start + i;
-      const float u = attrs[col];
-      const float v = attrs[npad + col];
-      const float d = attrs[9 * npad + col];
-      const float r = attrs[10 * npad + col];
+      float u, v, d, r;
+      if constexpr (BF16) {
+        const auto at = [&](int row) {
+          return __bfloat162float(attrs[row * npad + col]);
+        };
+        u = __fadd_rn(at(0), at(1));
+        v = __fadd_rn(at(2), at(3));
+        d = __fadd_rn(at(11), at(12));
+        r = at(13);
+      } else {
+        u = attrs[col];
+        v = attrs[npad + col];
+        d = attrs[9 * npad + col];
+        r = attrs[10 * npad + col];
+      }
       const bool cover = (r > 0.0f) && (u + r > tx0) && (u - r < tx1) &&
                          (v + r > ty0) && (v - r < ty1);
       if (cover) {
@@ -150,6 +176,8 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
   const int y0 = (warp / NWX) * PATCH_H;
   eags::FwdPatch<PPT> P;
   eags::fwd_patch_init(P, tx0, ty0, x0, y0, lane);
+  eags::QuadBasis<PPT> B;
+  if constexpr (QUAD) eags::quad_basis_init(B, x0, y0, lane);
   const float t_stop = expf(eags::LOG_T_MIN);
   const int num_chunks = (n_surv + CHUNK - 1) / CHUNK;
   int eff = 0;
@@ -162,18 +190,26 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
       float a[10];
       if (tid < jmax) {
         const int col = s_col[base + tid];
-#pragma unroll
-        for (int ch = 0; ch < 10; ++ch) a[ch] = attrs[ch * npad + col];
+        eags::load_attrs<BF16>(a, attrs, npad, col);
       } else {
 #pragma unroll
         for (int ch = 0; ch < 10; ++ch) a[ch] = 0.0f;
       }
 #pragma unroll
       for (int ch = 0; ch < 10; ++ch) s_attr[ch][tid] = a[ch];
-      s_box[tid] = eags::alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+      if constexpr (QUAD) {
+        float g[eags::QROWS];
+        eags::quad_coeffs(a[0], a[1], a[2], a[3], a[4], tx0, ty0, g);
+#pragma unroll
+        for (int k = 0; k < eags::QROWS; ++k) s_q[k][tid] = g[k];
+        s_box[tid] = eags::quad_box(a[0], a[1], a[2], a[3], a[4], a[5], g[6],
+                                    g[7], (float)TILE);
+      } else {
+        s_box[tid] = eags::alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+      }
     }
     __syncthreads();
-    eags::fwd_walk_chunk(P, s_attr, s_box, jmax, lane);
+    eags::fwd_walk_chunk<PPT, QUAD>(P, s_attr, s_box, jmax, lane, B, s_q);
     ++eff;
     const int any_live = __syncthreads_or(eags::fwd_live(P, t_stop));
     go = (eff < num_chunks) && any_live;
@@ -184,14 +220,50 @@ fwd_kernel(const float* __restrict__ attrs, int64_t npad,
                              eff, n_surv);
 }
 
-template <int TILE, int PPT>
-int launch(const float* attrs, int64_t npad, const int* seg_start,
-           const int* seg_cnt, const int* tile_ids, int n_sel, int tiles_x,
-           int bands, int seg_cap, float* out, int* cols, cudaStream_t st) {
-  fwd_kernel<TILE, PPT><<<n_sel, TILE * TILE / PPT, 0, st>>>(
-      attrs, npad, seg_start, seg_cnt, tile_ids, tiles_x, bands, seg_cap,
-      out, cols);
+template <int TILE, int PPT, bool QUAD, bool BF16>
+int launch_variant(const void* attrs, int64_t npad, const int* seg_start,
+                   const int* seg_cnt, const int* tile_ids, int n_sel,
+                   int tiles_x, int bands, int seg_cap, float* out,
+                   int* cols, cudaStream_t st) {
+  const size_t dyn = QUAD ? eags::QROWS * CHUNK * sizeof(float) : 0;
+  if (dyn) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fwd_kernel<TILE, PPT, QUAD, BF16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fwd_kernel<TILE, PPT, QUAD, BF16><<<n_sel, TILE * TILE / PPT, dyn, st>>>(
+      static_cast<const eags::AttrT<BF16>*>(attrs), npad, seg_start, seg_cnt,
+      tile_ids, tiles_x, bands, seg_cap, out, cols);
   return (int)cudaGetLastError();
+}
+
+// The variant `opts` names: bit 0 QUAD, bit 1 BF16.
+template <int TILE, int PPT>
+int launch(const void* attrs, int64_t npad, const int* seg_start,
+           const int* seg_cnt, const int* tile_ids, int n_sel, int tiles_x,
+           int bands, int seg_cap, float* out, int* cols, int opts,
+           cudaStream_t st) {
+  switch (opts) {
+    case 0:
+      return launch_variant<TILE, PPT, false, false>(
+          attrs, npad, seg_start, seg_cnt, tile_ids, n_sel, tiles_x, bands,
+          seg_cap, out, cols, st);
+    case 1:
+      return launch_variant<TILE, PPT, true, false>(
+          attrs, npad, seg_start, seg_cnt, tile_ids, n_sel, tiles_x, bands,
+          seg_cap, out, cols, st);
+    case 2:
+      return launch_variant<TILE, PPT, false, true>(
+          attrs, npad, seg_start, seg_cnt, tile_ids, n_sel, tiles_x, bands,
+          seg_cap, out, cols, st);
+    case 3:
+      return launch_variant<TILE, PPT, true, true>(
+          attrs, npad, seg_start, seg_cnt, tile_ids, n_sel, tiles_x, bands,
+          seg_cap, out, cols, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -201,25 +273,26 @@ int launch(const float* attrs, int64_t npad, const int* seg_start,
 // as the tracker's 1/8 subset (104 tiles on 132 SMs): one block an SM then,
 // and the larger block puts 32 warps on it.
 extern "C" int eags_composite_sorted_fwd(
-    const float* attrs, int64_t npad, const int* seg_start,
+    const void* attrs, int64_t npad, const int* seg_start,
     const int* seg_cnt, const int* tile_ids, int n_sel, int tile,
-    int tiles_x, int bands, int seg_cap, float* out, int* cols,
+    int tiles_x, int bands, int seg_cap, float* out, int* cols, int opts,
     void* stream) {
   if (bands * seg_cap > MAX_CAPT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 16:
       return launch<16, 1>(attrs, npad, seg_start, seg_cnt, tile_ids, n_sel,
-                           tiles_x, bands, seg_cap, out, cols, st);
+                           tiles_x, bands, seg_cap, out, cols, opts, st);
     case 32:
       if (n_sel <= eags::sm_count())
         return launch<32, 1>(attrs, npad, seg_start, seg_cnt, tile_ids,
-                             n_sel, tiles_x, bands, seg_cap, out, cols, st);
+                             n_sel, tiles_x, bands, seg_cap, out, cols, opts,
+                             st);
       return launch<32, 2>(attrs, npad, seg_start, seg_cnt, tile_ids, n_sel,
-                           tiles_x, bands, seg_cap, out, cols, st);
+                           tiles_x, bands, seg_cap, out, cols, opts, st);
     case 64:
       return launch<64, 8>(attrs, npad, seg_start, seg_cnt, tile_ids, n_sel,
-                           tiles_x, bands, seg_cap, out, cols, st);
+                           tiles_x, bands, seg_cap, out, cols, opts, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -43,6 +43,13 @@
 //    reduces the 7 sums with shuffles and a fixed-order pass over the
 //    warps. The TPU contracted a (16, capt) grad buffer with the jacobian
 //    bands in VMEM and folded lanes into an (8, 128) block per program.
+//  - The JAX options kernel_quadform and kernel_bf16 are the variants
+//    <QUAD, BF16> (`opts` bits 0 and 1), as in K2: BF16 stages from the
+//    bf16 attr layout; QUAD stages the quadform coefficients (4 KB of
+//    dynamic shared memory), replays with quad_alpha and sums 7 terms a
+//    pair (six basis moments and the depth term), contracted to the five
+//    geometry grads per survivor after the warp reduction. Each variant
+//    keeps the fixed summation order: two runs are equal bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,9 +65,10 @@ using eags::region;
 constexpr int NP = 7;      // pose parameters
 constexpr int P_MAX = 8;   // partial row width (column 7 is zero)
 
-template <int TILE, int PPT>
+template <int TILE, int PPT, bool QUAD, bool BF16>
 __global__ void __launch_bounds__(region(TILE) * region(TILE) / PPT)
-pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
+pose_kernel(const eags::AttrT<BF16>* __restrict__ attrs,
+            const float* __restrict__ jac,
             int64_t npad, const int* __restrict__ tile_ids, int tiles_x,
             int capt, const float* __restrict__ out,
             const int* __restrict__ cols, const float* __restrict__ dout,
@@ -79,6 +87,9 @@ pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
   __shared__ int s_col[CHUNK];
   __shared__ unsigned s_wmask[NWARPS][MASK_WORDS];
   __shared__ float s_acc[NWARPS][NP];
+  // QUAD: [QROWS][CHUNK], the staged survivors' coefficients and means.
+  extern __shared__ float s_dynq[];
+  float (*s_q)[CHUNK] = reinterpret_cast<float (*)[CHUNK]>(s_dynq);
 
   const int s = blockIdx.y;
   const int rg = blockIdx.x;
@@ -94,11 +105,12 @@ pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
   const int eff = (int)o[6 * px];
   const int n_surv = (int)o[7 * px];
 
+  const int x0 = (rg % PARTS) * RS + (warp % NWX) * 8;
+  const int y0 = (rg / PARTS) * RS + (warp / NWX) * PATCH_H;
   eags::Patch<PPT> P;
-  eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0,
-                              (rg % PARTS) * RS + (warp % NWX) * 8,
-                              (rg / PARTS) * RS + (warp / NWX) * PATCH_H,
-                              lane);
+  eags::patch_init<TILE, PPT>(P, o, g, tx0, ty0, x0, y0, lane);
+  eags::QuadBasis<PPT> B;
+  if constexpr (QUAD) eags::quad_basis_init(B, x0, y0, lane);
   float acc[NP];
 #pragma unroll
   for (int p = 0; p < NP; ++p) acc[p] = 0.0f;
@@ -109,16 +121,16 @@ pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
     __syncthreads();  // the last chunk's contraction has read s_col
     if (tid < jmax) {
       const int col = cols[(int64_t)s * capt + base + tid];
-      eags::stage(s_attr, s_box, tid, attrs, npad, col);
+      eags::stage<QUAD, BF16>(s_attr, s_box, tid, attrs, npad, col, s_q, tx0,
+                              ty0, (float)TILE);
       s_col[tid] = col;
     }
     __syncthreads();
 
     unsigned wm[MASK_WORDS];
-    eags::walk_chunk<PJ>(P, s_attr, s_box, jmax, lane, wm,
-                         [&](int j, int ch, float v) {
-                           s_warp[warp][ch][j] = v;
-                         });
+    eags::walk_chunk<PJ, QUAD>(
+        P, s_attr, s_box, jmax, lane, wm,
+        [&](int j, int ch, float v) { s_warp[warp][ch][j] = v; }, B, s_q);
     eags::store_mask(s_wmask[warp], lane, wm);
     __syncthreads();
     // Contract: thread j takes survivor j of this chunk (NT >= CHUNK).
@@ -165,16 +177,52 @@ pose_kernel(const float* __restrict__ attrs, const float* __restrict__ jac,
   }
 }
 
-template <int TILE, int PPT>
-int launch(const float* attrs, const float* jac, int64_t npad,
-           const int* tile_ids, int n_sel, int tiles_x, int capt,
-           const float* out, const int* cols, const float* dout, float* part,
-           cudaStream_t st) {
+template <int TILE, int PPT, bool QUAD, bool BF16>
+int launch_variant(const void* attrs, const float* jac, int64_t npad,
+                   const int* tile_ids, int n_sel, int tiles_x, int capt,
+                   const float* out, const int* cols, const float* dout,
+                   float* part, cudaStream_t st) {
   constexpr int RS = region(TILE);
   const dim3 grid((TILE / RS) * (TILE / RS), n_sel);
-  pose_kernel<TILE, PPT><<<grid, RS * RS / PPT, 0, st>>>(
-      attrs, jac, npad, tile_ids, tiles_x, capt, out, cols, dout, part);
+  const size_t dyn = QUAD ? eags::QROWS * CHUNK * sizeof(float) : 0;
+  if (dyn) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pose_kernel<TILE, PPT, QUAD, BF16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pose_kernel<TILE, PPT, QUAD, BF16><<<grid, RS * RS / PPT, dyn, st>>>(
+      static_cast<const eags::AttrT<BF16>*>(attrs), jac, npad, tile_ids,
+      tiles_x, capt, out, cols, dout, part);
   return (int)cudaGetLastError();
+}
+
+// The variant `opts` names: bit 0 QUAD, bit 1 BF16.
+template <int TILE, int PPT>
+int launch(const void* attrs, const float* jac, int64_t npad,
+           const int* tile_ids, int n_sel, int tiles_x, int capt,
+           const float* out, const int* cols, const float* dout, float* part,
+           int opts, cudaStream_t st) {
+  switch (opts) {
+    case 0:
+      return launch_variant<TILE, PPT, false, false>(
+          attrs, jac, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout,
+          part, st);
+    case 1:
+      return launch_variant<TILE, PPT, true, false>(
+          attrs, jac, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout,
+          part, st);
+    case 2:
+      return launch_variant<TILE, PPT, false, true>(
+          attrs, jac, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout,
+          part, st);
+    case 3:
+      return launch_variant<TILE, PPT, true, true>(
+          attrs, jac, npad, tile_ids, n_sel, tiles_x, capt, out, cols, dout,
+          part, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -184,23 +232,24 @@ int launch(const float* attrs, const float* jac, int64_t npad,
 // when it has no more, as the tracker's 1/8 subset. `part` has n_sel *
 // (tile / region(tile))^2 rows of 8.
 extern "C" int eags_pose_grad_sorted(
-    const float* attrs, const float* jac, int64_t npad, const int* tile_ids,
+    const void* attrs, const float* jac, int64_t npad, const int* tile_ids,
     int n_sel, int tile, int tiles_x, int capt, const float* out,
-    const int* cols, const float* dout, float* part, void* stream) {
+    const int* cols, const float* dout, float* part, int opts,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
     case 16:
       return launch<16, 1>(attrs, jac, npad, tile_ids, n_sel, tiles_x, capt,
-                           out, cols, dout, part, st);
+                           out, cols, dout, part, opts, st);
     case 32:
       if (n_sel <= eags::sm_count())
         return launch<32, 1>(attrs, jac, npad, tile_ids, n_sel, tiles_x,
-                             capt, out, cols, dout, part, st);
+                             capt, out, cols, dout, part, opts, st);
       return launch<32, 2>(attrs, jac, npad, tile_ids, n_sel, tiles_x, capt,
-                           out, cols, dout, part, st);
+                           out, cols, dout, part, opts, st);
     case 64:
       return launch<64, 4>(attrs, jac, npad, tile_ids, n_sel, tiles_x, capt,
-                           out, cols, dout, part, st);
+                           out, cols, dout, part, opts, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

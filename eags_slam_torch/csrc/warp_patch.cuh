@@ -34,8 +34,21 @@
 //  - slot_total adds per-warp slots [warp][channel][survivor] in warp
 //    order, skipping the slots a warp's mask says it did not write: the
 //    same order every run.
+//  - The variants of K1-K4 are template parameters of these loops,
+//    <QUAD, BF16>, each branch under `if constexpr`, so <false, false> is
+//    the default loop as it was. BF16: `stage` reads the bf16 attr layout
+//    (ops/composite_sorted.py `to_bf16_layout`) and rebuilds float32
+//    exactly (load_attrs). QUAD: `stage` also keeps each survivor's six
+//    quadform coefficients and tile-local mean in s_q (quad_coeffs) and
+//    its box is quad_box; each lane holds its pixels' tile-local basis
+//    (QuadBasis); the alpha is quad_alpha's; the backward sums, per pair,
+//    the six dpower-weighted basis moments in place of the five du / dv
+//    terms, reduces them over the warp (reduce_terms, one term more than
+//    the default) and contracts them to the five geometry grads per
+//    survivor (quad_contract) before they leave the warp.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +64,85 @@ constexpr int MASK_WORDS = CHUNK / 32;
 constexpr float LN2_64_INV = 0.0225421100138f;   // 1 / (64 ln 2)
 constexpr float LN2_64 = 44.3614195558365f;
 constexpr float LOG_T_MIN = -11.5f;              // the tile-wide stop
+constexpr int QROWS = 8;  // s_q rows under QUAD: 6 coefficients, u_, v_
+
+// The attrs' element type: float, or the bf16 layout's.
+template <bool BF16>
+struct AttrType {
+  using T = float;
+};
+template <>
+struct AttrType<true> {
+  using T = __nv_bfloat16;
+};
+template <bool BF16>
+using AttrT = typename AttrType<BF16>::T;
+
+// The 10 compositing rows of column col: read as they are, or rebuilt from
+// the bf16 layout (rows 0 / 1 u hi / lo, 2 / 3 v, 4-10 conic, opacity,
+// rgb, 11 / 12 depth) with hi + lo rounded as JAX's `_rebuild_f32`.
+template <bool BF16>
+__device__ __forceinline__ void load_attrs(
+    float (&a)[10], const AttrT<BF16>* __restrict__ attrs, int64_t npad,
+    int64_t col) {
+  if constexpr (BF16) {
+    const auto at = [&](int row) {
+      return __bfloat162float(attrs[row * npad + col]);
+    };
+    a[0] = __fadd_rn(at(0), at(1));
+    a[1] = __fadd_rn(at(2), at(3));
+#pragma unroll
+    for (int ch = 2; ch < 9; ++ch) a[ch] = at(ch + 2);
+    a[9] = __fadd_rn(at(11), at(12));
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < 10; ++ch) a[ch] = attrs[ch * npad + col];
+  }
+}
+
+// A lane's tile-local pixel basis under QUAD: its column lu and rows
+// lv[q] (exact integers) and their squares and products.
+template <int PPT>
+struct QuadBasis {
+  float lu, lu2;
+  float lv[PPT], lv2[PPT], luv[PPT];
+};
+
+// The basis of the lane's pixels of the patch at tile-local (x0, y0).
+template <int PPT>
+__device__ __forceinline__ void quad_basis_init(QuadBasis<PPT>& B, int x0,
+                                                int y0, int lane) {
+  B.lu = (float)(x0 + (lane & 7));
+  B.lu2 = B.lu * B.lu;
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) {
+    B.lv[q] = (float)(y0 + (lane >> 3) + 4 * q);
+    B.lv2[q] = B.lv[q] * B.lv[q];
+    B.luv[q] = B.lu * B.lv[q];
+  }
+}
+
+// The lane holding term t of NT after reduce_terms<NT> (-1: none).
+__host__ __device__ constexpr int term_of_lane(int nt, int lane) {
+  int idx = 0, n = nt, size = nt;
+  for (int off = 16; off > 0; off >>= 1) {
+    const int h = (size + 1) / 2;
+    if (lane & off) {
+      idx += h;
+      n -= h;
+    } else if (n > h) {
+      n = h;
+    }
+    size = h;
+  }
+  return n >= 1 ? idx : -1;
+}
+
+__host__ __device__ constexpr int lane_of_term(int nt, int t) {
+  for (int lane = 0; lane < 32; ++lane)
+    if (term_of_lane(nt, lane) == t) return lane;
+  return -1;
+}
 
 // The side of the square region of a tile that one K2 block takes: the
 // whole tile at 16, a quadrant at 32 and 64.
@@ -211,38 +303,66 @@ __device__ __forceinline__ void patch_init(Patch<PPT>& P, const float* o,
 }
 
 // Stage entry j of a chunk from attribute column `col`: its 10 attr rows
-// and its alpha box.
+// and its alpha box; under QUAD also its coefficients and tile-local mean
+// into s_q (the tile's corner at (tx0, ty0)) and the widened box.
+template <bool QUAD = false, bool BF16 = false>
 __device__ __forceinline__ void stage(float (*s_attr)[CHUNK], float4* s_box,
-                                      int j, const float* __restrict__ attrs,
-                                      int64_t npad, int64_t col) {
+                                      int j,
+                                      const AttrT<BF16>* __restrict__ attrs,
+                                      int64_t npad, int64_t col,
+                                      float (*s_q)[CHUNK] = nullptr,
+                                      float tx0 = 0.0f, float ty0 = 0.0f,
+                                      float tile = 0.0f) {
   float a[10];
-#pragma unroll
-  for (int ch = 0; ch < 10; ++ch) a[ch] = attrs[ch * npad + col];
+  load_attrs<BF16>(a, attrs, npad, col);
 #pragma unroll
   for (int ch = 0; ch < 10; ++ch) s_attr[ch][j] = a[ch];
-  s_box[j] = alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+  if constexpr (QUAD) {
+    float g[QROWS];
+    quad_coeffs(a[0], a[1], a[2], a[3], a[4], tx0, ty0, g);
+#pragma unroll
+    for (int k = 0; k < QROWS; ++k) s_q[k][j] = g[k];
+    s_box[j] = quad_box(a[0], a[1], a[2], a[3], a[4], a[5], g[6], g[7], tile);
+  } else {
+    s_box[j] = alpha_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+  }
 }
 
 // Replay survivor j of the staged chunk over the lane's pixels: move their
-// state past it and add its NC gradient terms to r: all 10 (NG), or K4's
-// six (PJ: terms 0-4 and 9, the JAX `gsel`). Returns whether any of the
-// lane's pixels took a contribution from it.
-template <int NC, int PPT>
-__device__ __forceinline__ bool patch_step(Patch<PPT>& P,
-                                           const float (*s_attr)[CHUNK],
-                                           int j, float (&r)[NC]) {
+// state past it and add its gradient terms to r: all 10 (NG), or K4's
+// six (PJ: terms 0-4 and 9, the JAX `gsel`); under QUAD the five geometry
+// terms become the six basis moments (r has NC + 1 terms). Returns
+// whether any of the lane's pixels took a contribution from it.
+template <int NC, int PPT, bool QUAD = false>
+__device__ __forceinline__ bool patch_step(
+    Patch<PPT>& P, const float (*s_attr)[CHUNK], int j,
+    float (&r)[NC + (QUAD ? 1 : 0)],
+    const QuadBasis<PPT>& B = QuadBasis<PPT>{},
+    const float (*s_q)[CHUNK] = nullptr) {
   static_assert(NC == NG || NC == PJ, "");
   const float mu = s_attr[0][j], mv = s_attr[1][j];
   const float ca = s_attr[2][j], cb = s_attr[3][j];
   const float cc = s_attr[4][j], op = s_attr[5][j];
   const float f0 = s_attr[6][j], f1 = s_attr[7][j];
   const float f2 = s_attr[8][j], f3 = s_attr[9][j];
+  float g[6];
+  if constexpr (QUAD) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) g[k] = s_q[k][j];
+  }
   bool any = false;
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
     float du, dv, gg, alpha;
-    if (!twin_alpha(P.pu, P.pv[q], mu, mv, ca, cb, cc, op, du, dv, gg, alpha))
-      continue;
+    if constexpr (QUAD) {
+      if (!quad_alpha(B.lu2, B.lv2[q], B.luv[q], B.lu, B.lv[q], g, op, gg,
+                      alpha))
+        continue;
+    } else {
+      if (!twin_alpha(P.pu, P.pv[q], mu, mv, ca, cb, cc, op, du, dv, gg,
+                      alpha))
+        continue;
+    }
     const float rr = __frcp_rn(1.0f - alpha);
     P.tm[q] *= rr;
     if (P.ex[q] > 0 && P.tm[q] >= 1.0f) {
@@ -256,23 +376,109 @@ __device__ __forceinline__ bool patch_step(Patch<PPT>& P,
     const float w = alpha * T;
     P.bsum[q] += w * qv;
     const float dpower = d_alpha * alpha;
-    r[0] += dpower * (ca * du + cb * dv);
-    r[1] += dpower * (cc * dv + cb * du);
-    r[2] += -0.5f * du * du * dpower;
-    r[3] += -du * dv * dpower;
-    r[4] += -0.5f * dv * dv * dpower;
-    if constexpr (NC == NG) {
-      r[5] += d_alpha * gg;
-      r[6] += P.d4[q][0] * w;
-      r[7] += P.d4[q][1] * w;
-      r[8] += P.d4[q][2] * w;
-      r[9] += P.d4[q][3] * w;
+    if constexpr (QUAD) {
+      r[0] += dpower * B.lu2;
+      r[1] += dpower * B.lv2[q];
+      r[2] += dpower * B.luv[q];
+      r[3] += dpower * B.lu;
+      r[4] += dpower * B.lv[q];
+      r[5] += dpower;
+      if constexpr (NC == NG) {
+        r[6] += d_alpha * gg;
+        r[7] += P.d4[q][0] * w;
+        r[8] += P.d4[q][1] * w;
+        r[9] += P.d4[q][2] * w;
+        r[10] += P.d4[q][3] * w;
+      } else {
+        r[6] += P.d4[q][3] * w;
+      }
     } else {
-      r[5] += P.d4[q][3] * w;
+      r[0] += dpower * (ca * du + cb * dv);
+      r[1] += dpower * (cc * dv + cb * du);
+      r[2] += -0.5f * du * du * dpower;
+      r[3] += -du * dv * dpower;
+      r[4] += -0.5f * dv * dv * dpower;
+      if constexpr (NC == NG) {
+        r[5] += d_alpha * gg;
+        r[6] += P.d4[q][0] * w;
+        r[7] += P.d4[q][1] * w;
+        r[8] += P.d4[q][2] * w;
+        r[9] += P.d4[q][3] * w;
+      } else {
+        r[5] += P.d4[q][3] * w;
+      }
     }
     any = true;
   }
   return any;
+}
+
+// One step of reduce_terms: keep the low or the high half of in[] (by
+// whether this lane's bit `off` is set) plus the partner's same half.
+template <int N, int H>
+__device__ __forceinline__ void reduce_step(const float (&in)[N],
+                                            float (&out)[H], bool hi,
+                                            int off) {
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float lo = in[k];
+    const float up = k + H < N ? in[k + H] : 0.0f;
+    out[k] = (hi ? up : lo) +
+             __shfl_xor_sync(0xffffffffu, hi ? lo : up, off);
+  }
+}
+
+// Transposing reduction of v[NT] over the warp (the QUAD variants' 11 or
+// 7 terms: 13 or 9 shuffles). Returns the warp's total of the term this
+// lane holds (`term`, term_of_lane; -1 for none).
+template <int NT>
+__device__ __forceinline__ float reduce_terms(const float (&v)[NT],
+                                              int lane, int& term) {
+  constexpr int S1 = (NT + 1) / 2, S2 = (S1 + 1) / 2, S3 = (S2 + 1) / 2;
+  constexpr int S4 = (S3 + 1) / 2, S5 = (S4 + 1) / 2;
+  static_assert(NT <= 32 && S5 == 1, "");
+  float a[S1], b[S2], c[S3], d[S4], e[S5];
+  reduce_step(v, a, lane & 16, 16);
+  reduce_step(a, b, lane & 8, 8);
+  reduce_step(b, c, lane & 4, 4);
+  reduce_step(c, d, lane & 2, 2);
+  reduce_step(d, e, lane & 1, 1);
+  term = term_of_lane(NT, lane);
+  return e[0];
+}
+
+// Under QUAD: the warp totals of survivor j's NT terms (reduce_terms; the
+// six moments S0-S5 first) to its emitted channels. The lanes holding
+// S0-S4 emit the geometry grads of u, v, conic a / b / c, contracted as
+// JAX's `_replay_chunks` under quadform; S5's lane emits nothing; the
+// other terms move down one channel. All lanes take part (shuffles).
+template <int NT>
+__device__ __forceinline__ float quad_contract(float val, int term,
+                                               const float (*s_attr)[CHUNK],
+                                               const float (*s_q)[CHUNK],
+                                               int j, int& ch) {
+  float S[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    S[k] = __shfl_sync(0xffffffffu, val, lane_of_term(NT, k));
+  ch = term > 5 ? term - 1 : (term == 5 ? -1 : term);
+  if (term < 0 || term > 4) return val;
+  const float u = s_q[6][j], v = s_q[7][j];
+  const float a = s_attr[2][j], b = s_attr[3][j], c = s_attr[4][j];
+  const float su = S[3] - u * S[5];
+  const float sv = S[4] - v * S[5];
+  switch (term) {
+    case 0:
+      return a * su + b * sv;
+    case 1:
+      return c * sv + b * su;
+    case 2:
+      return -0.5f * (S[0] - 2.0f * u * S[3] + u * u * S[5]);
+    case 3:
+      return -(S[2] - u * S[4] - v * S[3] + u * v * S[5]);
+    default:
+      return -0.5f * (S[1] - 2.0f * v * S[4] + v * v * S[5]);
+  }
 }
 
 // The box ballots of the staged chunk (jmax survivors) for this warp's
@@ -295,12 +501,13 @@ __device__ __forceinline__ void patch_ballot(const PatchT& P,
 // total of the NC terms goes to emit(j, channel, value) on the lane that
 // holds it. A survivor no lane contributed to leaves wm, so wm says which
 // survivors the warp emitted.
-template <int NC = NG, int PPT, class Emit>
-__device__ __forceinline__ void walk_words(Patch<PPT>& P,
-                                           const float (*s_attr)[CHUNK],
-                                           int lane,
-                                           unsigned (&wm)[MASK_WORDS],
-                                           int hi, int lo, Emit&& emit) {
+template <int NC = NG, bool QUAD = false, int PPT, class Emit>
+__device__ __forceinline__ void walk_words(
+    Patch<PPT>& P, const float (*s_attr)[CHUNK], int lane,
+    unsigned (&wm)[MASK_WORDS], int hi, int lo, Emit&& emit,
+    const QuadBasis<PPT>& B = QuadBasis<PPT>{},
+    const float (*s_q)[CHUNK] = nullptr) {
+  constexpr int NT = QUAD ? NC + 1 : NC;
 #pragma unroll
   for (int k = MASK_WORDS - 1; k >= 0; --k) {
     if (k > hi || k < lo) continue;
@@ -308,17 +515,22 @@ __device__ __forceinline__ void walk_words(Patch<PPT>& P,
       const int bit = 31 - __clz(m);
       m &= ~(1u << bit);
       const int j = k * 32 + bit;
-      float r[NC];
+      float r[NT];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) r[c] = 0.0f;
-      const bool any = patch_step<NC>(P, s_attr, j, r);
+      for (int c = 0; c < NT; ++c) r[c] = 0.0f;
+      const bool any = patch_step<NC, PPT, QUAD>(P, s_attr, j, r, B, s_q);
       if (__any_sync(0xffffffffu, any)) {
         int ch;
         float val;
-        if constexpr (NC == NG)
+        if constexpr (QUAD) {
+          int term;
+          val = reduce_terms<NT>(r, lane, term);
+          val = quad_contract<NT>(val, term, s_attr, s_q, j, ch);
+        } else if constexpr (NC == NG) {
           val = reduce10(r, lane, ch);
-        else
+        } else {
           val = reduce6(r, lane, ch);
+        }
         if (ch >= 0) emit(j, ch, val);
       } else {
         wm[k] &= ~(1u << bit);
@@ -329,15 +541,15 @@ __device__ __forceinline__ void walk_words(Patch<PPT>& P,
 
 // Walk the whole staged chunk for this warp's patch: ballots, then every
 // mask word back to front.
-template <int NC = NG, int PPT, class Emit>
-__device__ __forceinline__ void walk_chunk(Patch<PPT>& P,
-                                           const float (*s_attr)[CHUNK],
-                                           const float4* s_box, int jmax,
-                                           int lane,
-                                           unsigned (&wm)[MASK_WORDS],
-                                           Emit&& emit) {
+template <int NC = NG, bool QUAD = false, int PPT, class Emit>
+__device__ __forceinline__ void walk_chunk(
+    Patch<PPT>& P, const float (*s_attr)[CHUNK], const float4* s_box,
+    int jmax, int lane, unsigned (&wm)[MASK_WORDS], Emit&& emit,
+    const QuadBasis<PPT>& B = QuadBasis<PPT>{},
+    const float (*s_q)[CHUNK] = nullptr) {
   patch_ballot(P, s_box, jmax, lane, wm);
-  walk_words<NC>(P, s_attr, lane, wm, MASK_WORDS - 1, 0, emit);
+  walk_words<NC, QUAD>(P, s_attr, lane, wm, MASK_WORDS - 1, 0, emit, B,
+                       s_q);
 }
 
 // Lanes 0-3 store the warp's mask words.
@@ -366,11 +578,13 @@ __device__ __forceinline__ float slot_total(const float* s_warp,
 
 // Composite the staged chunk (jmax survivors) over the lane's pixels front
 // to back, walking only the survivors whose box meets the warp's patch.
-template <int PPT>
-__device__ __forceinline__ void fwd_walk_chunk(FwdPatch<PPT>& P,
-                                               const float (*s_attr)[CHUNK],
-                                               const float4* s_box,
-                                               int jmax, int lane) {
+// Under QUAD the alphas are quad_alpha's, from the lane's basis B and the
+// chunk's coefficients s_q.
+template <int PPT, bool QUAD = false>
+__device__ __forceinline__ void fwd_walk_chunk(
+    FwdPatch<PPT>& P, const float (*s_attr)[CHUNK], const float4* s_box,
+    int jmax, int lane, const QuadBasis<PPT>& B = QuadBasis<PPT>{},
+    const float (*s_q)[CHUNK] = nullptr) {
   unsigned wm[MASK_WORDS];
   patch_ballot(P, s_box, jmax, lane, wm);
 #pragma unroll
@@ -382,12 +596,23 @@ __device__ __forceinline__ void fwd_walk_chunk(FwdPatch<PPT>& P,
       const float op = s_attr[5][j];
       const float f0 = s_attr[6][j], f1 = s_attr[7][j];
       const float f2 = s_attr[8][j], f3 = s_attr[9][j];
+      float g[6];
+      if constexpr (QUAD) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c) g[c] = s_q[c][j];
+      }
 #pragma unroll
       for (int q = 0; q < PPT; ++q) {
         float du, dv, gg, alpha;
-        if (!twin_alpha(P.pu, P.pv[q], mu, mv, ca, cb, cc, op, du, dv, gg,
-                        alpha))
-          continue;
+        if constexpr (QUAD) {
+          if (!quad_alpha(B.lu2, B.lv2[q], B.luv[q], B.lu, B.lv[q], g, op,
+                          gg, alpha))
+            continue;
+        } else {
+          if (!twin_alpha(P.pu, P.pv[q], mu, mv, ca, cb, cc, op, du, dv, gg,
+                          alpha))
+            continue;
+        }
         if (P.ex[q] == 0) {
           const float w = alpha * P.tm[q];
           P.acc[q][0] += w * f0;

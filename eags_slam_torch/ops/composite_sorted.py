@@ -48,13 +48,35 @@ Semantics (identical in kernel and twin):
     parameter p < 7 (quat wxyz, trans xyz; row block 7 is padding), column
     in the attrs' sorted order. It returns dpose (7,).
 
+Two options of the JAX kernels, each a variant of K1-K4:
+  - `quadform` (RasterConfig.kernel_quadform): the Gaussian power in
+    tile-local pixel coordinates as the expanded quadratic form
+    [lu^2, lv^2, lu lv, lu, lv, 1] . G, G the survivor's six coefficients
+    (`_quad_coeffs`), summed in one fixed order with every multiply and add
+    rounded (`_quad_power`), so the kernels repeat the twin's alpha
+    decisions; K1's rules follow. The backward forms each survivor's five
+    geometry grads from the six dpower-weighted basis moments
+    (`_quad_geometry_grads`), not from per-pair offsets. The kernels cull
+    with `quad_alpha_box`, the alpha box widened by a bound on the expanded
+    form's float32 error.
+  - `bf16` (RasterConfig.kernel_bf16): the kernels read the attrs in the
+    bf16 layout of `to_bf16_layout` (u, v and depth as hi / lo pairs, the
+    other rows as single bf16 values) and rebuild float32 exactly as JAX's
+    `_rebuild_f32` (`rebuild_f32`); everything after the rebuild, the
+    transmittance and the backward's suffix sums included, is float32. (The
+    TPU kernel also rounds the inputs of its triangular prefix / suffix
+    matmuls to bf16; linear T has no such matmul, so that rounding has no
+    counterpart here.) A wrapper takes the bf16 option from the attrs'
+    dtype: float32 attrs, or their bf16 layout.
+
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel (built from `csrc/` at first use) or raises. There is no other
 fallback. `counts()` holds the kernel launches (`fwd_launches`,
 `bwd_launches`, `window_launches`, `pose_launches`) and the twin calls
 (`fwd_twin_calls`, `bwd_twin_calls`, `window_twin_calls`,
 `pose_twin_calls`; a K3 call on CPU tensors runs K2's twin and counts as
-`window_twin_calls`) of the main path. Work that runs beside it (the loop
+`window_twin_calls`) of the main path; `variant_counts()` splits the
+launches by variant (`VARIANTS`). Work that runs beside it (the loop
 closer, on its own CUDA stream and thread) counts apart under a tag
 (`counting_as`, `counts(tag)`).
 """
@@ -153,16 +175,35 @@ _counts = LaunchCounts((
     "fwd_launches", "bwd_launches", "window_launches", "pose_launches",
     "fwd_twin_calls", "bwd_twin_calls", "window_twin_calls",
     "pose_twin_calls"))
+# Launches by variant, keys "K1.default", "K2.quadform_bf16", ...
+VARIANTS = ("default", "quadform", "bf16", "quadform_bf16")
+_variants = LaunchCounts(f"{k}.{v}" for k in ("K1", "K2", "K3", "K4")
+                         for v in VARIANTS)
 
 
 def reset_counts() -> None:
     """Zero every tag's counts."""
     _counts.reset()
+    _variants.reset()
 
 
 def counts(tag: str = MAIN) -> dict:
     """Kernel launches and twin calls counted under `tag`."""
     return _counts.get(tag)
+
+
+def variant_counts(tag: str = MAIN) -> dict:
+    """Kernel launches by variant: {"K1": {variant: n}, ..., "K4": ...}."""
+    c = _variants.get(tag)
+    return {kid: {v: c[f"{kid}.{v}"] for v in VARIANTS}
+            for kid in ("K1", "K2", "K3", "K4")}
+
+
+def _bump_launch(key: str, kid: str, attrs, quadform: bool):
+    """Count a launch of kernel `kid` (`key`) and of its variant."""
+    _counts.bump(key, attrs.device)
+    variant = VARIANTS[int(quadform) + 2 * int(_is_bf16(attrs))]
+    _variants.bump(f"{kid}.{variant}", attrs.device)
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +283,137 @@ def _chunk_alpha(e, pu, pv, n_valid):
     return alpha, g, du, dv
 
 
+# ---------------------------------------------------------------------------
+# The bf16 layout (kernel_bf16)
+# ---------------------------------------------------------------------------
+
+
+def to_bf16_layout(attrs):
+    """(16, Npad) float32 attrs -> their (16, Npad) bf16 layout, as JAX's
+    `to_bf16_layout`: 0 u_hi, 1 u_lo, 2 v_hi, 3 v_lo, 4-6 conic a/b/c,
+    7 opacity, 8-10 rgb, 11 depth_hi, 12 depth_lo, 13 radius, 14-15 zero.
+    hi is the nearest bf16, lo the nearest bf16 to the remainder."""
+    bf = torch.bfloat16
+
+    def split(x):
+        hi = x.to(bf)
+        return hi, (x - hi.to(torch.float32)).to(bf)
+
+    u_hi, u_lo = split(attrs[0])
+    v_hi, v_lo = split(attrs[1])
+    d_hi, d_lo = split(attrs[9])
+    b16 = attrs.to(bf)
+    z = torch.zeros_like(u_hi)
+    return torch.stack([u_hi, u_lo, v_hi, v_lo, b16[2], b16[3], b16[4],
+                        b16[5], b16[6], b16[7], b16[8], d_hi, d_lo, b16[10],
+                        z, z]).contiguous()
+
+
+def rebuild_f32(layout):
+    """The float32 attrs (16, Npad) of a bf16 layout, as JAX's
+    `_rebuild_f32` and the kernels rebuild them: hi + lo for u, v and
+    depth, the other rows widened, rows 11-15 zero."""
+    f = layout.to(torch.float32)
+    out = torch.zeros_like(f)
+    out[0] = f[0] + f[1]
+    out[1] = f[2] + f[3]
+    out[2:9] = f[4:11]
+    out[9] = f[11] + f[12]
+    out[10] = f[13]
+    return out
+
+
+def _is_bf16(attrs) -> bool:
+    return attrs.dtype == torch.bfloat16
+
+
+def _as_f32(attrs):
+    """The float32 attrs a twin computes on: the rebuild of a bf16
+    layout, else the attrs themselves."""
+    return rebuild_f32(attrs) if _is_bf16(attrs) else attrs
+
+
+# ---------------------------------------------------------------------------
+# The expanded quadratic form (kernel_quadform)
+# ---------------------------------------------------------------------------
+
+
+def _basis(tile: int, device):
+    """(5, PX) tile-local basis rows lu^2, lv^2, lu lv, lu, lv (the 1 of
+    JAX's `_basis` multiplies the constant coefficient). Exact integers."""
+    p = torch.arange(tile * tile, device=device)
+    lu = (p % tile).to(torch.float32)
+    lv = (p // tile).to(torch.float32)
+    return torch.stack([lu * lu, lv * lv, lu * lv, lu, lv])
+
+
+def _quad_coeffs(e, tx0, ty0):
+    """Each survivor's coefficients (6, S, CHUNK) and tile-local mean u_, v_
+    (S, CHUNK), as JAX's `_gmat_chunk`: [-a/2, -c/2, -b, a u_ + b v_,
+    c v_ + b u_, -(a u_^2 + c v_^2) / 2 - b u_ v_], each operation rounded
+    in this order (csrc/alpha_box.cuh `quad_coeffs` repeats it)."""
+    u_ = e[0] - tx0[:, None]
+    v_ = e[1] - ty0[:, None]
+    a, b, c = e[2], e[3], e[4]
+    g3 = a * u_ + b * v_
+    g4 = c * v_ + b * u_
+    g5 = -0.5 * (a * u_ * u_ + c * v_ * v_) - b * u_ * v_
+    return torch.stack([-0.5 * a, -0.5 * c, -b, g3, g4, g5]), u_, v_
+
+
+def _quad_power(G, basis):
+    """Power (S, PX, CHUNK) = ((((g0 L0 + g1 L1) + g2 L2) + g3 L3) + g4 L4)
+    + g5: one fixed order, every multiply and add rounded (no FMA), the
+    order of csrc/alpha_box.cuh `quad_alpha`."""
+    g = G[:, :, None, :]                                 # (6, S, 1, CHUNK)
+    L = basis[:, None, :, None]                          # (5, 1, PX, 1)
+    power = g[0] * L[0] + g[1] * L[1]
+    power = power + g[2] * L[2]
+    power = power + g[3] * L[3]
+    power = power + g[4] * L[4]
+    return power + g[5]
+
+
+def _chunk_alpha_quad(e, basis, tx0, ty0, n_valid):
+    """`_chunk_alpha` under quadform (JAX `_chunk_alpha_mxu`): the power
+    from the expanded form, then the same rules (power > 0, the 0.99 clip,
+    the 1/255 test). Returns (alpha, g, u_, v_)."""
+    G, u_, v_ = _quad_coeffs(e, tx0, ty0)
+    power = _quad_power(G, basis)
+    g = torch.exp(torch.clamp(power, max=0.0))
+    slot = torch.arange(CHUNK, device=e.device)
+    slot_ok = slot[None, :] < n_valid[:, None]
+    alpha = torch.where((power <= 0.0) & slot_ok[:, None, :],
+                        e[5][:, None, :] * g, torch.zeros_like(g))
+    alpha = torch.clamp(alpha, max=ALPHA_MAX)
+    alpha = torch.where(alpha < ALPHA_MIN, torch.zeros_like(alpha), alpha)
+    return alpha, g, u_, v_
+
+
+def _quad_geometry_grads(basis, dpower, u_, v_, e):
+    """The five geometry grads (5, S, CHUNK) of u, v, conic a/b/c from the
+    dpower-weighted basis moments S_k = sum_p dpower L_k (S5: the plain
+    sum), contracted as JAX's `_replay_chunks` under quadform."""
+    S = torch.einsum("kp,spc->ksc", basis, dpower)
+    s5 = dpower.sum(1)
+    a, b, c = e[2], e[3], e[4]
+    su = S[3] - u_ * s5
+    sv = S[4] - v_ * s5
+    return torch.stack([
+        a * su + b * sv,
+        c * sv + b * su,
+        -0.5 * (S[0] - 2.0 * u_ * S[3] + u_ * u_ * s5),
+        -(S[2] - u_ * S[4] - v_ * S[3] + u_ * v_ * s5),
+        -0.5 * (S[1] - 2.0 * v_ * S[4] + v_ * v_ * s5),
+    ])
+
+
+def _tile_origin(tile_ids, tile: int, tiles_x: int):
+    tc = tile_ids.long()
+    return (((tc % tiles_x) * tile).to(torch.float32),
+            ((tc // tiles_x) * tile).to(torch.float32))
+
+
 # The alpha box of csrc/alpha_box.cuh (every kernel skips a warp's patch
 # that misses it). Widening: the float32 quadratic form may
 # undershoot the exact one by ~12 eps kappa of itself, kappa = (a + c)^2 /
@@ -251,17 +423,23 @@ BOX_T_PAD = 1e-4
 BOX_REL = 1.0001
 BOX_ABS = 1e-3
 BOX_POS = 4.0 * 2.0 ** -23
+# Under quadform the power is the expanded form's, whose float32 sum is off
+# the exact power by at most ~9 eps/2 of the sum of its terms' magnitudes,
+# S = (|a| U^2 + |c| V^2) / 2 + |b| U V with U = tile + |u_|, V = tile +
+# |v_| (tile-local |lu|, |lv| < tile): t grows by 16 eps S.
+BOX_QUAD_EPS = 16.0 * 2.0 ** -23
 
 
-def alpha_box(mu, mv, ca, cb, cc, op):
+def alpha_box(mu, mv, ca, cb, cc, op, t_pad=None):
     """Conservative pixel box per gaussian outside of which `_chunk_alpha`
     is zero, in float32 as `eags::alpha_box` computes it: (4, ...) rows
     u_lo, u_hi, v_lo, v_hi. The ellipse op * exp(power) >= 1/255 has
     half-widths sqrt(2 t c / det) in u and sqrt(2 t a / det) in v, t =
-    ln(255 op); 2 t becomes 2 (t + 1e-4) / (1 - 64 eps kappa), and the
-    half-widths grow by 1e-4 relative, 1e-3 px and 4 ulp of the mean.
-    op < 1/255 gives an empty box; a conic that is not positive definite or
-    has 64 eps kappa >= 0.5 gives an unbounded one (no cull)."""
+    ln(255 op); 2 t becomes 2 (t + t_pad) / (1 - 64 eps kappa), t_pad 1e-4
+    (or `quad_alpha_box`'s), and the half-widths grow by 1e-4 relative,
+    1e-3 px and 4 ulp of the mean. op < 1/255 gives an empty box; a conic
+    that is not positive definite or has 64 eps kappa >= 0.5 gives an
+    unbounded one (no cull)."""
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=mu.device)
 
@@ -269,7 +447,8 @@ def alpha_box(mu, mv, ca, cb, cc, op):
     tr = ca + cc
     slack = f32(BOX_KAPPA_EPS) * (tr * tr / det)
     t = torch.clamp(torch.log(f32(255.0) * op), min=0.0)
-    q = f32(2.0) * (t + f32(BOX_T_PAD)) / (f32(1.0) - slack)
+    t_pad = f32(BOX_T_PAD) if t_pad is None else t_pad
+    q = f32(2.0) * (t + t_pad) / (f32(1.0) - slack)
     hu = (torch.sqrt(q * cc / det) * f32(BOX_REL) + f32(BOX_ABS)
           + f32(BOX_POS) * mu.abs())
     hv = (torch.sqrt(q * ca / det) * f32(BOX_REL) + f32(BOX_ABS)
@@ -285,25 +464,55 @@ def alpha_box(mu, mv, ca, cb, cc, op):
     return torch.where((op < ALPHA_MIN)[None], empty.view(shape), box)
 
 
+def quad_alpha_box(mu, mv, ca, cb, cc, op, u_, v_, tile: int):
+    """`alpha_box` for the quadform alpha of a tile whose tile-local mean
+    is (u_, v_): t_pad grows by BOX_QUAD_EPS times the bound S on the
+    expanded form's terms, as `eags::quad_box` computes it."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=mu.device)
+
+    au = f32(float(tile)) + u_.abs()
+    av = f32(float(tile)) + v_.abs()
+    s = (f32(0.5) * (ca.abs() * au * au + cc.abs() * av * av)
+         + cb.abs() * au * av)
+    return alpha_box(mu, mv, ca, cb, cc, op,
+                     t_pad=f32(BOX_T_PAD) + f32(BOX_QUAD_EPS) * s)
+
+
 @torch.no_grad()
 def composite_sorted_fwd_plain(attrs, seg_start, seg_cnt, tile_ids,
                                tile: int, tiles_x: int, bands: int,
-                               seg_cap: int):
-    """Plain PyTorch twin of K1. Returns (out (S, 8, PX), cols (S, capt))."""
+                               seg_cap: int, quadform: bool = False):
+    """Plain PyTorch twin of K1 (attrs float32, or their bf16 layout).
+    Returns (out (S, 8, PX), cols (S, capt))."""
     _counts.bump("fwd_twin_calls", attrs.device)
+    attrs = _as_f32(attrs)
     cols, n_surv = _survivors(attrs, seg_start, seg_cnt, tile_ids, tile,
                               tiles_x, bands, seg_cap)
-    return _composite_cols(attrs, cols, n_surv, tile_ids, tile,
-                           tiles_x), cols
+    return _composite_cols(attrs, cols, n_surv, tile_ids, tile, tiles_x,
+                           quadform), cols
 
 
-def _composite_cols(attrs, cols, n_surv, tile_ids, tile: int, tiles_x: int):
+def _alpha_of(tile_ids, tile: int, tiles_x: int, quadform: bool, device):
+    """The chunk alpha of the tiles `tile_ids`: f(e, n_valid) -> (alpha,
+    g, x, y), (x, y) the per-pair offsets du, dv (conic form) or the
+    tile-local means u_, v_ (quadform)."""
+    if quadform:
+        basis = _basis(tile, device)
+        tx0, ty0 = _tile_origin(tile_ids, tile, tiles_x)
+        return lambda e, n: _chunk_alpha_quad(e, basis, tx0, ty0, n)
+    pu, pv = _pixel_coords(tile_ids, tile, tiles_x)
+    return lambda e, n: _chunk_alpha(e, pu, pv, n)
+
+
+def _composite_cols(attrs, cols, n_surv, tile_ids, tile: int, tiles_x: int,
+                    quadform: bool = False):
     """Front-to-back compositing of each tile's first `n_surv` columns of
     `cols` (S, L), in chunks of 128 with the tile-wide stop. Returns out
     (S, 8, PX); channel 7 holds n_surv."""
     s = tile_ids.shape[0]
     px = tile * tile
-    pu, pv = _pixel_coords(tile_ids, tile, tiles_x)
+    alpha_fn = _alpha_of(tile_ids, tile, tiles_x, quadform, attrs.device)
     num_chunks = (n_surv + CHUNK - 1) // CHUNK
     log_t = torch.zeros((s, px), dtype=torch.float32, device=attrs.device)
     acc = torch.zeros((s, px, 4), dtype=torch.float32, device=attrs.device)
@@ -314,7 +523,7 @@ def _composite_cols(attrs, cols, n_surv, tile_ids, tile: int, tiles_x: int):
         if not bool(active.any()):
             break
         e = _chunk_attrs(attrs, cols, ci)
-        alpha, _, _, _ = _chunk_alpha(e, pu, pv, n_surv - ci * CHUNK)
+        alpha = alpha_fn(e, n_surv - ci * CHUNK)[0]
         log1m = torch.log1p(-alpha)
         excl = torch.cumsum(log1m, -1) - log1m
         w = alpha * torch.exp(excl + log_t[:, :, None])
@@ -334,26 +543,29 @@ def _composite_cols(attrs, cols, n_surv, tile_ids, tile: int, tiles_x: int):
 
 @torch.no_grad()
 def composite_sorted_bwd_plain(attrs, tile_ids, out, cols, dout, tile: int,
-                               tiles_x: int):
+                               tiles_x: int, quadform: bool = False):
     """Plain PyTorch twin of K2: the analytic reverse chunk replay of
-    `_replay_chunks`. Returns grads (16, Npad)."""
+    `_replay_chunks`. Returns grads (16, Npad) float32."""
     _counts.bump("bwd_twin_calls", attrs.device)
-    return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
+    return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x,
+                         quadform)
 
 
 @torch.no_grad()
 def pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols, dout, tile: int,
-                           tiles_x: int):
+                           tiles_x: int, quadform: bool = False):
     """Plain PyTorch twin of K4: K2's replay grads, rows GROWS, contracted
     with the pose jacobian. Returns dpose (7,)."""
     _counts.bump("pose_twin_calls", attrs.device)
-    g = _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
+    g = _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x,
+                      quadform)
     gsel = g[list(GROWS)]                                # (6, Npad)
     return (jac[: 7 * PJ].reshape(7, PJ, -1) * gsel[None]).sum((1, 2))
 
 
 def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
-                  tiles_x: int):
+                  tiles_x: int, quadform: bool = False):
+    attrs = _as_f32(attrs)
     grads = torch.zeros_like(attrs)
     s = tile_ids.shape[0]
     if s == 0:
@@ -362,7 +574,8 @@ def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
     lane = torch.arange(cols.shape[1], device=cols.device)
     cols = torch.where(lane[None, :] < out[:, 7, :1].long(), cols,
                        torch.zeros_like(cols))
-    pu, pv = _pixel_coords(tile_ids, tile, tiles_x)
+    alpha_fn = _alpha_of(tile_ids, tile, tiles_x, quadform, attrs.device)
+    basis = _basis(tile, attrs.device) if quadform else None
     dout_px = dout[:, 0:4].permute(0, 2, 1)            # (S, PX, 4)
     d_alpha_map = dout[:, 4]                           # (S, PX)
     log_t_end = out[:, 5].clone()
@@ -372,7 +585,7 @@ def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
     for ci in range(int(eff.max()) - 1, -1, -1):
         live = ci < eff                                # (S,)
         e = _chunk_attrs(attrs, cols, ci)
-        alpha, g_, du, dv = _chunk_alpha(e, pu, pv, n_surv - ci * CHUNK)
+        alpha, g_, x_, y_ = alpha_fn(e, n_surv - ci * CHUNK)
         log1m = torch.log1p(-alpha)
         excl = torch.cumsum(log1m, -1) - log1m
         log_t_in = log_t_end - log1m.sum(-1)
@@ -388,16 +601,20 @@ def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
         dfeat = torch.einsum("spc,spk->csk", dout_px, w)      # (4, S, CHUNK)
         dop = (d_alpha * g_).sum(1)
         dpower = d_alpha * alpha
-        a_, b_, c_ = e[2][:, None, :], e[3][:, None, :], e[4][:, None, :]
-        d_du = dpower * (-(a_ * du + b_ * dv))
-        d_dv = dpower * (-(c_ * dv + b_ * du))
-        dG = torch.stack([
-            -d_du.sum(1), -d_dv.sum(1),
-            (-0.5 * du * du * dpower).sum(1),
-            (-du * dv * dpower).sum(1),
-            (-0.5 * dv * dv * dpower).sum(1),
-            dop, dfeat[0], dfeat[1], dfeat[2], dfeat[3],
-        ])                                                    # (10, S, CHUNK)
+        if quadform:
+            geo = _quad_geometry_grads(basis, dpower, x_, y_, e)
+        else:
+            du, dv = x_, y_
+            a_, b_, c_ = e[2][:, None, :], e[3][:, None, :], e[4][:, None, :]
+            d_du = dpower * (-(a_ * du + b_ * dv))
+            d_dv = dpower * (-(c_ * dv + b_ * du))
+            geo = torch.stack([
+                -d_du.sum(1), -d_dv.sum(1),
+                (-0.5 * du * du * dpower).sum(1),
+                (-du * dv * dpower).sum(1),
+                (-0.5 * dv * dv * dpower).sum(1)])
+        dG = torch.cat([geo, torch.stack([dop, dfeat[0], dfeat[1], dfeat[2],
+                                          dfeat[3]])])       # (10, S, CHUNK)
         slot = torch.arange(CHUNK, device=attrs.device)
         ok = live[:, None] & (slot[None, :] < (n_surv - ci * CHUNK)[:, None])
         dG = torch.where(ok[None], dG, torch.zeros_like(dG))
@@ -509,17 +726,18 @@ def _load_kernels(verbose: bool):
                            "tensors take the plain twins")
     lib = ctypes.CDLL(str(build_kernels(verbose)))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # Each of K1-K4 takes its variant (`_opts`) before the stream.
     lib.eags_composite_sorted_fwd.argtypes = [P, L, P, P, P, I, I, I, I, I,
-                                              P, P, P]
+                                              P, P, I, P]
     lib.eags_composite_sorted_fwd.restype = I
     lib.eags_composite_sorted_bwd.argtypes = [P, L, P, I, I, I, I, P, P, P,
-                                              P, P]
+                                              P, I, P]
     lib.eags_composite_sorted_bwd.restype = I
     lib.eags_composite_sorted_bwd_window.argtypes = [
-        P, L, P, I, I, P, I, I, I, I, I, P, P, P, P, P]
+        P, L, P, I, I, P, I, I, I, I, I, P, P, P, P, I, P]
     lib.eags_composite_sorted_bwd_window.restype = I
     lib.eags_pose_grad_sorted.argtypes = [P, P, L, P, I, I, I, I, P, P, P,
-                                          P, P]
+                                          P, I, P]
     lib.eags_pose_grad_sorted.restype = I
     lib.eags_composite_entries_fwd.argtypes = [P, L, P, P, I, I, I, P, P]
     lib.eags_composite_entries_fwd.restype = I
@@ -535,19 +753,35 @@ def _check(t, name, dtype, dim):
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_attrs(attrs):
+    """attrs: float32, or the bf16 layout (the kernel_bf16 variant)."""
+    _check(attrs, "attrs", torch.bfloat16 if _is_bf16(attrs)
+           else torch.float32, 2)
+    if attrs.shape[0] != NCH:
+        raise ValueError(f"attrs must be ({NCH}, Npad), got "
+                         f"{tuple(attrs.shape)}")
+
+
+def _opts(attrs, quadform: bool) -> int:
+    """The variant argument of K1-K4: bit 0 quadform, bit 1 bf16."""
+    return int(bool(quadform)) | (2 if _is_bf16(attrs) else 0)
+
+
 def _cuda_check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
 def composite_sorted_fwd(attrs, seg_start, seg_cnt, tile_ids, tile: int,
-                         tiles_x: int, bands: int, seg_cap: int):
-    """K1 on CUDA tensors, the plain twin on CPU tensors.
+                         tiles_x: int, bands: int, seg_cap: int,
+                         quadform: bool = False):
+    """K1 on CUDA tensors, the plain twin on CPU tensors. `attrs`: float32,
+    or their bf16 layout (`to_bf16_layout`) for the bf16 variant.
     Returns (out (S, 8, PX) f32, cols (S, bands * seg_cap) i32)."""
     if attrs.device.type == "cpu":
         return composite_sorted_fwd_plain(attrs, seg_start, seg_cnt,
                                           tile_ids, tile, tiles_x, bands,
-                                          seg_cap)
+                                          seg_cap, quadform)
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
@@ -556,12 +790,12 @@ def composite_sorted_fwd(attrs, seg_start, seg_cnt, tile_ids, tile: int,
     if capt > MAX_CAPT or tile not in (16, 32, 64):
         raise ValueError(f"K1 takes bands*seg_cap <= {MAX_CAPT} and tile in "
                          f"(16, 32, 64); got {capt}, {tile}")
-    _check(attrs, "attrs", torch.float32, 2)
+    _check_attrs(attrs)
     _check(seg_start, "seg_start", torch.int32, 2)
     _check(seg_cnt, "seg_cnt", torch.int32, 2)
     _check(tile_ids, "tile_ids", torch.int32, 1)
-    if attrs.shape[0] != NCH or seg_start.shape[1] != bands:
-        raise ValueError("attrs must be (16, Npad), seg tables (T, bands)")
+    if seg_start.shape[1] != bands:
+        raise ValueError("the seg tables must be (T, bands)")
     s = tile_ids.shape[0]
     out = torch.empty((s, OUT_CH, tile * tile), dtype=torch.float32,
                       device=attrs.device)
@@ -571,42 +805,44 @@ def composite_sorted_fwd(attrs, seg_start, seg_cnt, tile_ids, tile: int,
     err = lib.eags_composite_sorted_fwd(
         attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
         seg_cnt.data_ptr(), tile_ids.data_ptr(), s, tile, tiles_x, bands,
-        seg_cap, out.data_ptr(), cols.data_ptr(),
+        seg_cap, out.data_ptr(), cols.data_ptr(), _opts(attrs, quadform),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K1 launch")
-    _counts.bump("fwd_launches", attrs.device)
+    _bump_launch("fwd_launches", "K1", attrs, quadform)
     return out, cols
 
 
 def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
-                         tiles_x: int):
-    """K2 on CUDA tensors, the plain twin on CPU tensors. Returns grads
-    (16, Npad) f32 (cross-tile sums via atomicAdd: the summation order, and
-    so the last bits, vary from run to run)."""
+                         tiles_x: int, quadform: bool = False):
+    """K2 on CUDA tensors, the plain twin on CPU tensors (attrs as K1's).
+    Returns grads (16, Npad) f32 in the float32 attrs' rows (cross-tile
+    sums via atomicAdd: the summation order, and so the last bits, vary
+    from run to run)."""
     if attrs.device.type == "cpu":
         return composite_sorted_bwd_plain(attrs, tile_ids, out, cols, dout,
-                                          tile, tiles_x)
+                                          tile, tiles_x, quadform)
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
     lib = load_kernels()
-    for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
-                             (tile_ids, "tile_ids", torch.int32, 1),
+    _check_attrs(attrs)
+    for t, name, dt, dim in ((tile_ids, "tile_ids", torch.int32, 1),
                              (out, "out", torch.float32, 3),
                              (cols, "cols", torch.int32, 2),
                              (dout, "dout", torch.float32, 3)):
         _check(t, name, dt, dim)
-    grads = torch.zeros_like(attrs)
+    grads = torch.zeros(attrs.shape, dtype=torch.float32,
+                        device=attrs.device)
     s = tile_ids.shape[0]
     if s == 0:
         return grads
     err = lib.eags_composite_sorted_bwd(
         attrs.data_ptr(), attrs.shape[1], tile_ids.data_ptr(), s, tile,
         tiles_x, cols.shape[1], out.data_ptr(), cols.data_ptr(),
-        dout.data_ptr(), grads.data_ptr(),
+        dout.data_ptr(), grads.data_ptr(), _opts(attrs, quadform),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K2 launch")
-    _counts.bump("bwd_launches", attrs.device)
+    _bump_launch("bwd_launches", "K2", attrs, quadform)
     return grads
 
 
@@ -619,22 +855,24 @@ def window_run() -> int:
 
 def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
                                 tile: int, tiles_x: int, bands: int,
-                                seg_cap: int, group: int):
+                                seg_cap: int, group: int,
+                                quadform: bool = False):
     """K3 on CUDA tensors; on CPU tensors K2's twin, which is K3's plain
     version (the same sums). `seg_start` (T, bands) gives each tile's band
     windows; a cluster takes `window_run` consecutive entries of tile_ids
     (at most `group`), and `last_window_run` records the run it launched.
-    Returns grads (16, Npad) f32 (lanes leave a cluster through global
-    atomicAdd: the last bits vary from run to run)."""
+    attrs as K1's. Returns grads (16, Npad) f32 (lanes leave a cluster
+    through global atomicAdd: the last bits vary from run to run)."""
     if attrs.device.type == "cpu":
         _counts.bump("window_twin_calls", attrs.device)
-        return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x)
+        return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x,
+                             quadform)
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
     lib = load_kernels()
-    for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
-                             (seg_start, "seg_start", torch.int32, 2),
+    _check_attrs(attrs)
+    for t, name, dt, dim in ((seg_start, "seg_start", torch.int32, 2),
                              (tile_ids, "tile_ids", torch.int32, 1),
                              (out, "out", torch.float32, 3),
                              (cols, "cols", torch.int32, 2),
@@ -645,7 +883,8 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
         raise ValueError(f"K3 takes bands <= {MAX_BANDS}, bands*seg_cap <= "
                          f"{MAX_CAPT}, seg_cap a multiple of {CHUNK}, "
                          f"group >= 1; got {bands}, {seg_cap}, {group}")
-    grads = torch.zeros_like(attrs)
+    grads = torch.zeros(attrs.shape, dtype=torch.float32,
+                        device=attrs.device)
     s = tile_ids.shape[0]
     if s == 0:
         return grads
@@ -655,9 +894,10 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
         attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(), bands,
         seg_cap, tile_ids.data_ptr(), s, run, tile, tiles_x, cols.shape[1],
         out.data_ptr(), cols.data_ptr(), dout.data_ptr(), grads.data_ptr(),
+        _opts(attrs, quadform),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K3 launch")
-    _counts.bump("window_launches", attrs.device)
+    _bump_launch("window_launches", "K3", attrs, quadform)
     return grads
 
 
@@ -668,22 +908,22 @@ def regions(tile: int) -> int:
 
 
 def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
-                     tiles_x: int):
-    """K4 on CUDA tensors, the plain twin on CPU tensors. `attrs`, `out`,
-    `cols` are K1's input and residuals, `dout` the (S, 8, PX) cotangent,
-    `jac` (48, Npad) the pose jacobian. Returns dpose (7,) f32: each block
-    (a tile's region, K2's grid) writes its 7 sums in a fixed order and the
-    (S * regions, 8) partials are summed here, so the result does not
-    change from run to run."""
+                     tiles_x: int, quadform: bool = False):
+    """K4 on CUDA tensors, the plain twin on CPU tensors. `attrs` (as K1's),
+    `out`, `cols` are K1's input and residuals, `dout` the (S, 8, PX)
+    cotangent, `jac` (48, Npad) the pose jacobian. Returns dpose (7,) f32:
+    each block (a tile's region, K2's grid) writes its 7 sums in a fixed
+    order and the (S * regions, 8) partials are summed here, so the result
+    does not change from run to run."""
     if attrs.device.type == "cpu":
         return pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols, dout,
-                                      tile, tiles_x)
+                                      tile, tiles_x, quadform)
     if attrs.device.type != "cuda":
         raise RuntimeError(f"pose_grad_sorted: no kernel for device "
                            f"{attrs.device}")
     lib = load_kernels()
-    for t, name, dt, dim in ((attrs, "attrs", torch.float32, 2),
-                             (jac, "jac", torch.float32, 2),
+    _check_attrs(attrs)
+    for t, name, dt, dim in ((jac, "jac", torch.float32, 2),
                              (tile_ids, "tile_ids", torch.int32, 1),
                              (out, "out", torch.float32, 3),
                              (cols, "cols", torch.int32, 2),
@@ -702,52 +942,60 @@ def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
     err = lib.eags_pose_grad_sorted(
         attrs.data_ptr(), jac.data_ptr(), attrs.shape[1], tile_ids.data_ptr(),
         s, tile, tiles_x, cols.shape[1], out.data_ptr(), cols.data_ptr(),
-        dout.data_ptr(), part.data_ptr(),
+        dout.data_ptr(), part.data_ptr(), _opts(attrs, quadform),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K4 launch")
-    _counts.bump("pose_launches", attrs.device)
+    _bump_launch("pose_launches", "K4", attrs, quadform)
     return part.sum(0)[:7]
 
 
 class CompositeSorted(torch.autograd.Function):
     """Differentiable w.r.t. attrs rows 0-9 (row 10, the radius, only
     gates coverage and gets no gradient, as in the JAX version). The
-    backward is K2, or K3 with `rmw_window`."""
+    backward is K2, or K3 with `rmw_window`. With `bf16` the float32 attrs
+    go to their bf16 layout once, inside the Function, and both kernels
+    read it; the grads come back in the float32 attrs' rows."""
 
     @staticmethod
     def forward(ctx, attrs, seg_start, seg_cnt, tile_ids, tile, tiles_x,
-                bands, seg_cap, group, rmw_window):
+                bands, seg_cap, group, rmw_window, quadform, bf16):
         attrs = attrs.contiguous()
+        if bf16:
+            attrs = to_bf16_layout(attrs)
         out, cols = composite_sorted_fwd(attrs, seg_start, seg_cnt,
                                          tile_ids, tile, tiles_x, bands,
-                                         seg_cap)
+                                         seg_cap, quadform)
         ctx.save_for_backward(attrs, seg_start, tile_ids, out, cols)
-        ctx.geom = (tile, tiles_x, bands, seg_cap, group, rmw_window)
+        ctx.geom = (tile, tiles_x, bands, seg_cap, group, rmw_window,
+                    quadform)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         attrs, seg_start, tile_ids, out, cols = ctx.saved_tensors
-        tile, tiles_x, bands, seg_cap, group, rmw_window = ctx.geom
+        tile, tiles_x, bands, seg_cap, group, rmw_window, quadform = ctx.geom
         if rmw_window:
             grads = composite_sorted_bwd_window(
                 attrs, seg_start, tile_ids, out, cols, dout.contiguous(),
-                tile, tiles_x, bands, seg_cap, group)
+                tile, tiles_x, bands, seg_cap, group, quadform)
         else:
             grads = composite_sorted_bwd(attrs, tile_ids, out, cols,
-                                         dout.contiguous(), tile, tiles_x)
-        return (grads,) + (None,) * 9
+                                         dout.contiguous(), tile, tiles_x,
+                                         quadform)
+        return (grads,) + (None,) * 11
 
 
 def composite_sorted(attrs_sorted, seg_start, seg_cnt, tile_ids, tile: int,
                      tiles_x: int, bands: int, seg_cap: int, group: int = 16,
-                     rmw_window: bool = False):
-    """attrs_sorted (16, Npad) centre-tile sorted; tile_ids (S,) selects the
-    tiles. Returns (S, 8, PX) tile images (channels: see module doc). The
-    backward is K3 with `rmw_window` (runs of `group` tiles), else K2."""
+                     rmw_window: bool = False, quadform: bool = False,
+                     bf16: bool = False):
+    """attrs_sorted (16, Npad) float32 centre-tile sorted; tile_ids (S,)
+    selects the tiles. Returns (S, 8, PX) tile images (channels: see module
+    doc). The backward is K3 with `rmw_window` (runs of `group` tiles),
+    else K2; `quadform` and `bf16` pick the kernels' variant."""
     return CompositeSorted.apply(attrs_sorted, seg_start.to(torch.int32)
                                  .contiguous(),
                                  seg_cnt.to(torch.int32).contiguous(),
                                  tile_ids.to(torch.int32).contiguous(),
                                  tile, tiles_x, bands, seg_cap, group,
-                                 rmw_window)
+                                 rmw_window, quadform, bf16)

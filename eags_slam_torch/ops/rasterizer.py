@@ -32,7 +32,11 @@ and the pose) through PyTorch autograd; the column gather of `_sorted_attrs`
 is plain indexing, whose backward is a scatter-add.
 
 `RasterConfig` keeps the JAX fields the ported paths read, plus the
-selectors of the unported branches, for which `check_config` raises. The
+selector of the unported dense backend, for which `check_config` raises.
+`kernel_quadform` and `kernel_bf16` pick the variant of K1-K4 on every
+sorted path (render, tiles, resident, frozen and its K4 backward;
+`ops.composite_sorted`); the `pallas` backend's K5 / K6 have no such
+variants, as in the JAX package. The
 dense-only fields (`tile_capacity`, `chunk`: the v1 kernels use 128) and
 `alpha_max` (the kernels clip alpha at the fixed `ALPHA_MAX`) are left out.
 `group` bounds the run of tiles a K3 cluster replays (`window_run`).
@@ -47,7 +51,8 @@ import torch
 from ..core.camera import Camera
 from .composite_entries import composite_entries
 from .composite_sorted import (NCH, P_MAX, PJ, composite_sorted,
-                               composite_sorted_fwd, pose_grad_sorted)
+                               composite_sorted_fwd, pose_grad_sorted,
+                               to_bf16_layout)
 
 
 class RasterConfig(NamedTuple):
@@ -63,8 +68,8 @@ class RasterConfig(NamedTuple):
     entry_cap_factor: int = 4  # pallas: total entry budget = factor * N
     seg_cap: int = 1024       # per-band segment capacity
     bands: int = 3            # centre-tile neighbourhood side
-    kernel_bf16: bool = False  # not ported (ROADMAP Queue 2)
-    kernel_quadform: bool = False  # not ported (ROADMAP Queue 2)
+    kernel_bf16: bool = False  # sorted: K1-K4 read the bf16 attr layout
+    kernel_quadform: bool = False  # sorted: expanded-form Gaussian power
     rmw_window: bool = False  # sorted backward through K3
 
 
@@ -105,13 +110,8 @@ def check_config(cfg: RasterConfig) -> None:
     if backend_of(cfg) not in ("sorted", "pallas"):
         raise NotImplementedError(
             f"RasterConfig.backend={cfg.backend!r}: the dense 'jnp' "
-            "compositor is not ported (ROADMAP Queue 1; not on the port's "
-            "path)")
-    for flag, item in (("kernel_bf16", "K1 bf16 option"),
-                       ("kernel_quadform", "K1 quadform option")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"RasterConfig.{flag}: not ported (ROADMAP Queue 2, {item})")
+            "compositor is not ported (ROADMAP Queue 1 item 13; not on the "
+            "port's path)")
 
 
 class RenderOutput(NamedTuple):
@@ -319,7 +319,8 @@ def _composite(attrs, seg_start, seg_cnt, tile_ids, cam, cfg):
     tiles_x, _ = _tiles(cam, cfg)
     return composite_sorted(attrs, seg_start, seg_cnt, tile_ids, cfg.tile,
                             tiles_x, cfg.bands, cfg.seg_cap, cfg.group,
-                            cfg.rmw_window)
+                            cfg.rmw_window, cfg.kernel_quadform,
+                            cfg.kernel_bf16)
 
 
 def render(means3d, quats, log_scales, opacity_logits, colors, w2c,
@@ -855,10 +856,12 @@ class _FrozenPoseTiles(torch.autograd.Function):
         with torch.no_grad():
             attrs = _stack_reproj_rows(
                 e3d, _pose_rel_w2c(pose_vec, last_w2c), cam, cfg).contiguous()
+            if cfg.kernel_bf16:
+                attrs = to_bf16_layout(attrs)
         out, cols = composite_sorted_fwd(
             attrs, seg_start.to(torch.int32).contiguous(),
             seg_cnt.to(torch.int32).contiguous(), tile_ids, cfg.tile,
-            tiles_x, cfg.bands, cfg.seg_cap)
+            tiles_x, cfg.bands, cfg.seg_cap, cfg.kernel_quadform)
         ctx.save_for_backward(pose_vec, e3d, last_w2c, attrs, tile_ids, out,
                               cols)
         ctx.geom = (cam, cfg)
@@ -873,7 +876,8 @@ class _FrozenPoseTiles(torch.autograd.Function):
         with torch.no_grad():
             jac = _pose_jacobian(e3d, pose_vec.detach(), last_w2c, cam, cfg)
         dpose = pose_grad_sorted(attrs, jac, tile_ids, out, cols,
-                                 dout.contiguous(), cfg.tile, tiles_x)
+                                 dout.contiguous(), cfg.tile, tiles_x,
+                                 cfg.kernel_quadform)
         return (dpose[: pose_vec.shape[0]].to(pose_vec.dtype), None, None,
                 None, None, None, None, None)
 

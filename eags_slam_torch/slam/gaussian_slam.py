@@ -42,12 +42,17 @@ The run's evaluation, the heavy stages (`evaluation.eval_mesh`,
 `eval_global`) included, runs after the loop (`evaluation/evaluator.py`,
 driven by `run_slam`, `run_evaluation` and `bench`).
 
+Options of the map and track path: `mapping.kernel_quadform` /
+`kernel_bf16` (the variants of K1-K4), `mapping.tile_subset` (a random
+tile subset each mapping iteration), `mapping.init_halfres_frac` (the first
+part of a fresh submap's init on the boundary frame at half resolution,
+then the rest at full resolution with the full frame's descriptor) and
+`tracking.debug_per_iter` (each tracked frame's per-iteration record,
+`tracker.DEBUG_ITER_NAMES`, written to log.jsonl as "track_iters").
+
 Not ported yet, each raising NotImplementedError when a config selects it:
-the device mesh (`use_mesh`, `force_mesh`,
-`sp_track`), the half-resolution submap init (`init_halfres_frac > 0`), the
-mapper's per-iteration tile subset (`tile_subset > 0`), the dense `jnp`
-backend, the K1 `kernel_bf16` / `kernel_quadform` options and a VO pinned
-to another device (`vo.device`).
+the device mesh (`use_mesh`, `force_mesh`, `sp_track`), the dense `jnp`
+backend and a VO pinned to another device (`vo.device`).
 """
 from __future__ import annotations
 
@@ -179,22 +184,17 @@ def check_run_config(config: Dict) -> None:
     get_dataset(config["data"]["dataset_name"])
     check_config(raster_config(config, torch.device(
         config.get("device", "cuda"))))
-    cam = config["cam"]
-    edge = int(cam.get("crop_edge", 0))
-    M.check_config(mapper_config(config, Camera(
-        cam["fx"], cam["fy"], cam["cx"], cam["cy"], cam["W"],
-        cam["H"]).crop(edge)))
-    TT.check_config(tracker_config(config))
     vo_check_config(VOConfig.from_dict(config.get("vo", {})))
 
 
 class GaussianSLAM:
     """`dataset`: a frame source to use instead of the config's dataset.
     `draws`: an object replacing the generator-based random draws, with
-    `seed_gumbels(key, is_new, n_pixels) -> list of (n_pixels,) noise` and
-    `kf_sampler(key) -> callable(p_kf, it0)`; `key` is the pair of uint32
-    drawn from the run's numpy stream for that step (parity tests hand both
-    packages the same draws through it)."""
+    `seed_gumbels(key, is_new, n_pixels) -> list of (n_pixels,) noise`,
+    `kf_sampler(key) -> callable(p_kf, it0)` and, optionally,
+    `tile_sampler(key) -> callable(it)` (the mapper's tile subset); `key`
+    is the pair of uint32 drawn from the run's numpy stream for that step
+    (parity tests hand both packages the same draws through it)."""
 
     def __init__(self, config: Dict, dataset=None, draws=None):
         self.config = config
@@ -314,6 +314,16 @@ class GaussianSLAM:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(key[0]) * (2**32) + int(key[1]))
         return gen
+
+    def _samplers(self, key: np.ndarray) -> Dict:
+        """An optimisation's random draws for the step keyed `key`: the
+        generator, and the injected keyframe / tile samplers of `draws`."""
+        d = {"generator": self._generator(key)}
+        if self.draws is not None:
+            d["kf_sampler"] = self.draws.kf_sampler(key)
+            if hasattr(self.draws, "tile_sampler"):
+                d["tile_sampler"] = self.draws.tile_sampler(key)
+        return d
 
     def _sync(self):
         """Wait for this thread's stream (not the loop closer's)."""
@@ -441,14 +451,27 @@ class GaussianSLAM:
         M.push_keyframe(self.kfs, 0, gt_color, gt_depth, w2c32, exposure)
         iters = (self.mcfg.new_submap_iterations if is_new_submap
                  else self.mcfg.iterations)
-        key = self._key()
-        self.state, n_added, losses, n_alive, kf_desc = \
-            M.insert_and_optimize(
-                self.state, rows, row_valid, self.kfs, self.n_kf + 1, iters,
+        # The half-resolution init (mapping.init_halfres_frac) applies to a
+        # submap seeded as new only (a warm start is already cheap): phase
+        # 1 optimises against the boundary frame's 2x-downsampled copy, its
+        # only keyframe, on Camera.scaled(1); phase 2 runs the rest at full
+        # resolution, and its descriptor is the full frame's, so loop
+        # closure's detection does not depend on the resolution.
+        iters_half = (int(round(self.mcfg.init_halfres_frac * iters))
+                      if seed_as_new else 0)
+        self.state, n_added = G.insert(self.state, rows, row_valid)
+        run_half = 0
+        if iters_half > 0:
+            kfs_half = M.halfres_single_kf(gt_color, gt_depth, w2c32,
+                                           exposure)
+            self.state, _, _, _, run_half = M.optimize_and_describe(
+                self.state, kfs_half, 1, iters_half, self.cam.scaled(1),
+                self.rcfg, self.mcfg, **self._samplers(self._key()))
+        self.state, losses, n_alive, kf_desc, run_full = \
+            M.optimize_and_describe(
+                self.state, self.kfs, self.n_kf + 1, iters - iters_half,
                 self.cam, self.rcfg, self.mcfg,
-                generator=self._generator(key),
-                kf_sampler=(self.draws.kf_sampler(key)
-                            if self.draws is not None else None))
+                **self._samplers(self._key()))
         slot = self._next_kf_slot()
         if slot is not None:
             M.push_keyframe(self.kfs, slot, gt_color, gt_depth, w2c32,
@@ -474,7 +497,9 @@ class GaussianSLAM:
             self.logger.vis_mapping(frame_id, out.color, out.depth, gt_color,
                                     gt_depth, seeding_mask)
         return {"n_added": int(n_added), "n_alive": self._n_alive,
-                "final_loss": float(losses[-1, 0])}
+                "final_loss": float(losses[-1, 0]),
+                "iterations": run_half + run_full,
+                "halfres_iters": run_half}
 
     def _apply_lc_corrections(self):
         """Left-multiply the drained correction ranges into the live pose
@@ -543,6 +568,12 @@ class GaussianSLAM:
                 stats["data_wait_ms"] = 1e3 * data_wait
                 self.logger.log_tracking(
                     frame_id, {k: float(v) for k, v in stats.items()})
+                if self.tcfg.debug_per_iter:
+                    self.logger.log("track_iters", {
+                        "frame_id": frame_id,
+                        "names": list(TT.DEBUG_ITER_NAMES),
+                        "iters": np.round(self.tracker.last_per_iter,
+                                          6).tolist()})
             self._sync()
             self.track_times.append(time.perf_counter() - t_track)
 

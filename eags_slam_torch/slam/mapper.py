@@ -8,14 +8,21 @@ Differences in form from the JAX version, none in the arithmetic:
   - randomness comes from a `torch.Generator`. The draws are split out so a
     caller can inject them: `sample_seed_ids` takes the Gumbel noise
     (`gumbels`), the optimisation takes a keyframe sampler (`kf_sampler`,
-    called once per block). The same injected draws make the two packages
-    take the same path.
+    called once per block) and a tile sampler (`tile_sampler`, called once
+    per iteration of the tile subset). The same injected draws make the
+    two packages take the same path.
 
 Both optimisation loops are ported: the resident-sorted one (sorted
 backend, `kf_block > 0`) and the plain one that renders every iteration
 from the canonical row order with a keyframe drawn per iteration (the
-`pallas` backend, or `kf_block <= 0`). The per-iteration random tile
-subset (`tile_subset > 0`) is not.
+`pallas` backend, or `kf_block <= 0`). With `tile_subset > 0` on the
+sorted backend each iteration of the plain loop optimises a random subset
+of min(tile_subset, tiles) tiles (`render_tiles` against `gt_tiles`, the
+SSIM per tile), and the bookkeeping compares a loss EMA (beta 0.8): the
+resident loop is off under the subset, as in the JAX package.
+`halfres_single_kf` and `optimize_and_describe` are the two phases of the
+half-resolution submap init (`init_halfres_frac`, driven by
+`slam/gaussian_slam.py`).
 """
 from __future__ import annotations
 
@@ -31,12 +38,13 @@ from ..core.gaussians import (OPT_KEYS, GaussianParams, GaussianState,
                               num_alive, point_rows)
 from ..core.sh import sh_to_rgb
 from ..ops import knn
-from ..ops.image import canny, dilate, gradient_sample_probs, rgb_to_gray
+from ..ops.image import (canny, depth_pyr_down, dilate,
+                         gradient_sample_probs, rgb_to_gray)
 from ..ops.losses import isotropic_loss, masked_l1, ssim, ssim_batched
 from ..ops.rasterizer import (RasterConfig, backend_of, gt_tiles, render,
                               render_sorted_resident,
-                              render_sorted_resident_tiles, sorted_layout,
-                              tile_sums)
+                              render_sorted_resident_tiles, render_tiles,
+                              sorted_layout, tile_sums)
 from ..utils import optim
 
 
@@ -68,17 +76,6 @@ class MapperConfig(NamedTuple):
     lr_scaling: float = 5e-3
     lr_rotation: float = 1e-3
     lr_opacity: float = 0.05
-
-
-def check_config(mcfg: MapperConfig) -> None:
-    if mcfg.tile_subset > 0:
-        raise NotImplementedError(
-            "MapperConfig.tile_subset > 0: the per-iteration random tile "
-            "subset is not ported (ROADMAP Queue 1)")
-    if mcfg.init_halfres_frac > 0:
-        raise NotImplementedError(
-            "MapperConfig.init_halfres_frac > 0: the half-resolution submap "
-            "init is not ported (ROADMAP Queue 1 item 14)")
 
 
 @dataclass
@@ -390,13 +387,32 @@ def _map_loss(out, kfs: KeyframeBatch, kidx: int, log_scales, alive,
     return total, color_loss, depth_loss, image, mask
 
 
+def _tile_loss(out, kfs: KeyframeBatch, kidx: int, tile_sel, cam: Camera,
+               ts: int, log_scales, alive, lam: float):
+    """`_map_loss` of a render of the tiles `tile_sel` (S,) of keyframe
+    `kidx` against its `gt_tiles`, the SSIM taken per tile and averaged.
+    Returns (total, colour loss, depth loss)."""
+    tiles_x, tiles_y = -(-cam.width // ts), -(-cam.height // ts)
+    gt_c = gt_tiles(kfs.color[kidx], tile_sel, ts, tiles_x, tiles_y)
+    gt_d = gt_tiles(kfs.depth[kidx], tile_sel, ts, tiles_x, tiles_y)
+    exp_a, exp_b = kfs.exposure[kidx, 0], kfs.exposure[kidx, 1]
+    image = torch.clamp(out.color * torch.exp(exp_a) + exp_b, 0.0, 1.0)
+    mask = ((gt_d > 0) & ~torch.isnan(out.depth)).to(image.dtype)
+    color_loss = (1.0 - lam) * masked_l1(image, gt_c, mask) \
+        + lam * (1.0 - ssim_batched(image, gt_c).mean())
+    depth_loss = masked_l1(out.depth, gt_d, mask)
+    total = color_loss + depth_loss + isotropic_loss(log_scales, alive)
+    return total, color_loss, depth_loss
+
+
 def _optimize_plain(state: GaussianState, kfs: KeyframeBatch, iterations,
                     cam, rcfg, mcfg, p_kf, lr_tree, book_step, book0,
-                    draw_kf):
+                    draw_kf, draw_tiles=None):
     """The non-resident optimisation: every iteration draws a keyframe
     (`draw_kf(p_kf, it)`, 0 while it < 5), renders the rows in their
-    canonical order, masks the grads by `alive` and takes an Adam step and
-    the bookkeeping step."""
+    canonical order (with `draw_tiles`, only the tiles `draw_tiles(it)`),
+    masks the grads by `alive` and takes an Adam step and the bookkeeping
+    step."""
     opt = {k: getattr(state.params, k) for k in OPT_KEYS}
     adam, alive, book = state.adam, state.alive, book0
     colors = sh_to_rgb(state.params.f_dc)
@@ -405,11 +421,22 @@ def _optimize_plain(state: GaussianState, kfs: KeyframeBatch, iterations,
     while it < iterations and not book.stopped:
         kidx = int(draw_kf(p_kf, it))
         leaf = {k: v.detach().requires_grad_(True) for k, v in opt.items()}
-        out = render(leaf["xyz"], leaf["quats"], leaf["log_scales"],
-                     leaf["opacity_logits"], colors, kfs.w2c[kidx], cam,
-                     rcfg, alive=alive)
-        total, cl, dl, _, _ = _map_loss(out, kfs, kidx, leaf["log_scales"],
-                                        alive, mcfg.lambda_dssim)
+        if draw_tiles is None:
+            out = render(leaf["xyz"], leaf["quats"], leaf["log_scales"],
+                         leaf["opacity_logits"], colors, kfs.w2c[kidx], cam,
+                         rcfg, alive=alive)
+            total, cl, dl, _, _ = _map_loss(out, kfs, kidx,
+                                            leaf["log_scales"], alive,
+                                            mcfg.lambda_dssim)
+        else:
+            tile_sel = draw_tiles(it)
+            out = render_tiles(leaf["xyz"], leaf["quats"],
+                               leaf["log_scales"], leaf["opacity_logits"],
+                               colors, kfs.w2c[kidx], tile_sel, cam, rcfg,
+                               alive=alive)
+            total, cl, dl = _tile_loss(out, kfs, kidx, tile_sel, cam,
+                                       rcfg.tile, leaf["log_scales"], alive,
+                                       mcfg.lambda_dssim)
         grads = _masked_grads(leaf, total, alive)
         vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
         vals = vals.cpu().numpy().astype(np.float32)
@@ -458,23 +485,12 @@ def _optimize_resident(state: GaussianState, kfs: KeyframeBatch, iterations,
         return total, color_loss, depth_loss, res
 
     def loss_sub(opt, f_dc, alive, kidx, seg_start, seg_cnt, tile_sel):
-        gt_c = gt_tiles(kfs.color[kidx], tile_sel, rcfg.tile, tiles_x,
-                        tiles_y)
-        gt_d = gt_tiles(kfs.depth[kidx], tile_sel, rcfg.tile, tiles_x,
-                        tiles_y)
-        exp_a, exp_b = kfs.exposure[kidx, 0], kfs.exposure[kidx, 1]
         out = render_sorted_resident_tiles(
             opt["xyz"], opt["quats"], opt["log_scales"],
             opt["opacity_logits"], sh_to_rgb(f_dc), kfs.w2c[kidx],
             seg_start, seg_cnt, tile_sel, cam, rcfg, alive=alive)
-        image = torch.clamp(out.color * torch.exp(exp_a) + exp_b, 0.0, 1.0)
-        mask = ((gt_d > 0) & ~torch.isnan(out.depth)).to(image.dtype)
-        color_loss = (1.0 - lam) * masked_l1(image, gt_c, mask) \
-            + lam * (1.0 - ssim_batched(image, gt_c).mean())
-        depth_loss = masked_l1(out.depth, gt_d, mask)
-        total = color_loss + depth_loss + isotropic_loss(opt["log_scales"],
-                                                         alive)
-        return total, color_loss, depth_loss
+        return _tile_loss(out, kfs, kidx, tile_sel, cam, rcfg.tile,
+                          opt["log_scales"], alive, lam)
 
     it = 0
     perm = torch.arange(n, device=dev)
@@ -563,17 +579,30 @@ def _default_kf_sampler(generator, device):
     return draw
 
 
+def _default_tile_sampler(generator, device, num_tiles: int, n_sub: int):
+    """`n_sub` distinct tiles of the `num_tiles`, drawn uniformly without
+    replacement each iteration (the JAX package's permutation prefix)."""
+    def draw(it):
+        return torch.randperm(num_tiles, generator=generator,
+                              device=device)[:n_sub].to(torch.int32)
+    return draw
+
+
 def _optimize_core(state: GaussianState, kfs: KeyframeBatch, n_kf: int,
                    iterations: int, cam: Camera, rcfg: RasterConfig,
-                   mcfg: MapperConfig, generator=None, kf_sampler=None):
+                   mcfg: MapperConfig, generator=None, kf_sampler=None,
+                   tile_sampler=None):
     """Submap optimisation (slot 0 = the current frame): loss = (1 - l)
     masked L1 + l (1 - SSIM) + masked depth L1 + isotropic regulariser;
     checkpoint every 5%, prune (+ rollback) at 30% / 60%, early stop after
     the last prune, final rollback and opacity < 0.01 prune.
     `kf_sampler(p_kf, it0) -> keyframe index` is called once per block of
     the resident loop, once per iteration of the plain one; it replaces the
-    generator's draws (and must return 0 while it0 < 5)."""
-    check_config(mcfg)
+    generator's draws (and must return 0 while it0 < 5). With
+    `mcfg.tile_subset` on the sorted backend, `tile_sampler(it) -> (S,)
+    int32 tile ids` (S = min(tile_subset, tiles)) is called once per
+    iteration, after the keyframe draw, in place of the generator's.
+    Returns (state, {"losses": (iterations, 3), "iterations": run})."""
     frozen = state.params
     ckpt_every = max(int(0.05 * iterations), 1)
     early_thre = max(int(0.05 * iterations), 1)
@@ -585,30 +614,42 @@ def _optimize_core(state: GaussianState, kfs: KeyframeBatch, n_kf: int,
                "opacity_logits": mcfg.lr_opacity}
     draw_kf = kf_sampler or _default_kf_sampler(generator,
                                                  state.alive.device)
+    sorted_backend = backend_of(rcfg) == "sorted"
+    draw_tiles = None
+    if mcfg.tile_subset > 0 and sorted_backend:
+        num_tiles = -(-cam.width // rcfg.tile) * -(-cam.height // rcfg.tile)
+        draw_tiles = tile_sampler or _default_tile_sampler(
+            generator, state.alive.device, num_tiles,
+            min(mcfg.tile_subset, num_tiles))
+    # Under the tile subset the per-iteration loss is a noisy estimate: the
+    # checkpoint / rollback / early-stop decisions compare an EMA.
+    ema_beta = 0.8 if draw_tiles is not None else 0.0
 
     def book_step(book, it, total, opt, adam, alive):
         return _book_step(book, it, total, opt, adam, alive,
                           pruning_thre=mcfg.pruning_thre,
                           ckpt_every=ckpt_every, early_thre=early_thre,
-                          prune_iters=prune_iters, ema_beta=0.0,
+                          prune_iters=prune_iters, ema_beta=ema_beta,
                           stale_best_cnt=mcfg.stale_best_cnt)
 
     opt0 = {k: getattr(state.params, k) for k in OPT_KEYS}
     book0 = _BookState(np.float32(np.inf), np.float32(np.inf), opt0,
                        state.adam, False, 0, 0, False)
-    loop = (_optimize_resident
-            if backend_of(rcfg) == "sorted" and mcfg.kf_block > 0
-            else _optimize_plain)
-    opt, adam, alive, book, final_it, losses = loop(
-        state, kfs, iterations, cam, rcfg, mcfg, p_kf, lr_tree, book_step,
-        book0, draw_kf)
+    args = (state, kfs, iterations, cam, rcfg, mcfg, p_kf, lr_tree,
+            book_step, book0, draw_kf)
+    if sorted_backend and mcfg.kf_block > 0 and draw_tiles is None:
+        opt, adam, alive, book, final_it, losses = _optimize_resident(*args)
+    else:
+        opt, adam, alive, book, final_it, losses = _optimize_plain(
+            *args, draw_tiles)
     last = losses[max(final_it - 1, 0)]
     losses[final_it:] = last
     if book.has_ckpt and book.best_loss < book.ema:
         opt, adam = book.ckpt_opt, book.ckpt_adam
     alive = alive & (torch.sigmoid(opt["opacity_logits"][:, 0]) >= 0.01)
     params = frozen.replace(**{k: v.detach() for k, v in opt.items()})
-    return GaussianState(params, alive, adam), {"losses": losses}
+    return GaussianState(params, alive, adam), {"losses": losses,
+                                                "iterations": final_it}
 
 
 optimize_submap = _optimize_core
@@ -632,17 +673,52 @@ def warm_visible(params: GaussianParams, alive, w2c, cam: Camera,
     return vis, int(vis.sum())
 
 
+@torch.no_grad()
+def halfres_single_kf(color, depth, w2c, exposure) -> KeyframeBatch:
+    """A one-keyframe batch at half resolution for the first phase of a
+    submap's init: colour the 2x2 mean, depth `depth_pyr_down`'s
+    hole-aware 2x2 mean (0 where the block holds no valid depth); the pose
+    is resolution-independent, the intrinsics are `Camera.scaled(1)`'s."""
+    h2, w2 = color.shape[0] // 2, color.shape[1] // 2
+    c = color[: h2 * 2, : w2 * 2].reshape(h2, 2, w2, 2, 3)
+    # Summed in the JAX package's reduction order, so the mean is its own.
+    mean = (((c[:, 0, :, 0] + c[:, 0, :, 1]) + c[:, 1, :, 0])
+            + c[:, 1, :, 1]) / 4.0
+    return KeyframeBatch(
+        color=mean[None],
+        depth=depth_pyr_down(depth)[:h2, :w2][None],
+        w2c=w2c[None], exposure=exposure[None],
+        valid=torch.ones(1, dtype=torch.bool, device=color.device))
+
+
+def optimize_and_describe(state: GaussianState, kfs: KeyframeBatch,
+                          n_kf: int, iterations: int, cam: Camera,
+                          rcfg: RasterConfig, mcfg: MapperConfig,
+                          generator=None, kf_sampler=None,
+                          tile_sampler=None):
+    """Optimise and describe slot 0 for place recognition, no insert: the
+    full-resolution tail of a half-resolution submap init (the descriptor
+    comes from the full-resolution boundary frame). Returns (state,
+    losses, n_alive, desc, iterations run)."""
+    from ..lc.descriptor import global_descriptor
+
+    new_state, aux = _optimize_core(state, kfs, n_kf, iterations, cam, rcfg,
+                                    mcfg, generator=generator,
+                                    kf_sampler=kf_sampler,
+                                    tile_sampler=tile_sampler)
+    desc = global_descriptor(kfs.color[0])
+    return (new_state, aux["losses"], num_alive(new_state), desc,
+            aux["iterations"])
+
+
 def insert_and_optimize(state: GaussianState, rows: GaussianParams, valid,
                         kfs: KeyframeBatch, n_kf: int, iterations: int,
                         cam: Camera, rcfg: RasterConfig, mcfg: MapperConfig,
-                        generator=None, kf_sampler=None):
+                        generator=None, kf_sampler=None, tile_sampler=None):
     """Insert `seed_rows` output, optimise, and describe slot 0 for place
     recognition. Returns (state, n_added, losses, n_alive, desc)."""
-    from ..lc.descriptor import global_descriptor
-
     state, n_added = insert(state, rows, valid)
-    new_state, aux = _optimize_core(state, kfs, n_kf, iterations, cam, rcfg,
-                                    mcfg, generator=generator,
-                                    kf_sampler=kf_sampler)
-    desc = global_descriptor(kfs.color[0])
-    return new_state, n_added, aux["losses"], num_alive(new_state), desc
+    new_state, losses, n_alive, desc, _ = optimize_and_describe(
+        state, kfs, n_kf, iterations, cam, rcfg, mcfg, generator=generator,
+        kf_sampler=kf_sampler, tile_sampler=tile_sampler)
+    return new_state, n_added, losses, n_alive, desc

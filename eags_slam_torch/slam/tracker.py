@@ -6,7 +6,8 @@ medians, then refine w2c = last_w2c @ Rel(quat, trans) with amsgrad Adam,
 ReduceLROnPlateau, the |delta loss| early stop, the optional stale-best stop
 and best-iterate recovery. On the sorted backend the refinement renders a
 frozen centre-sorted layout (`freeze_sorted`), optionally on the
-top-scoring tile subset with a wider polish phase at the end; with
+top-scoring tile subset with a wider polish phase at the end (off under
+`debug_per_iter`, which records every iteration; DEBUG_ITER_NAMES); with
 `pose_grad_kernel` its pose gradient comes from the pose-contraction
 backward (K4) instead of the K2 grads and autograd through the
 reprojection. On the `pallas` backend it renders a frozen entry binning
@@ -63,13 +64,11 @@ class TrackerConfig(NamedTuple):
 STAT_NAMES = ("loss", "color_loss", "depth_loss", "iters", "best_iter")
 TRACK_STAT_NAMES = STAT_NAMES + ("best_cand", "init_color_loss",
                                  "init_depth_loss")
-
-
-def check_config(tcfg: TrackerConfig) -> None:
-    if tcfg.debug_per_iter:
-        raise NotImplementedError(
-            "TrackerConfig.debug_per_iter: per-iteration records are not "
-            "ported (ROADMAP Queue 1 item 5)")
+# The per-iteration record of `debug_per_iter`: after iteration i, its loss
+# and the best colour / depth losses so far; before it, the plateau's LR
+# scale and the pose; `active` 1 for an iteration that ran.
+DEBUG_ITER_NAMES = ("loss", "color_loss", "depth_loss", "lr_scale",
+                    "active", "qw", "qx", "qy", "qz", "tx", "ty", "tz")
 
 
 def _rel_matrix(quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
@@ -136,7 +135,6 @@ def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
     """Refinement loss over the frozen layout of the backend: the
     centre-sorted one (tile subset when `subset` = (tile_ids, gt_c_tiles,
     gt_d_tiles, in_img) is given) or the entry binning."""
-    check_config(tcfg)
     w = tcfg.w_color_loss
     if not tcfg.frozen_binning:
         def loss_full(pose):
@@ -196,10 +194,11 @@ def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
 
 
 def _refine(loss_fn, init_rel, num_iters: int, exposure0,
-            tcfg: TrackerConfig, warm=None):
+            tcfg: TrackerConfig, warm=None, record=None):
     """Pose refinement loop; returns (rel_best 4x4, exposure, stats (5,)
     np.float32 of STAT_NAMES, (adam, plateau)). `warm` = (adam, plateau)
-    continues a previous phase's optimizer state."""
+    continues a previous phase's optimizer state. `record`: an (I, 12)
+    array whose row `it` gets iteration it's DEBUG_ITER_NAMES values."""
     f32 = np.float32
     q0 = rotmat_to_quat(init_rel[:3, :3])
     pose = {"quat": q0, "trans": init_rel[:3, 3].clone(),
@@ -244,6 +243,10 @@ def _refine(loss_fn, init_rel, num_iters: int, exposure0,
         if total_f < best_loss:
             best_pose = old
             best_cl, best_dl, best_it = cl_f, dl_f, it
+        if record is not None:
+            record[it, :5] = (total_f, best_cl, best_dl, lr, 1.0)
+            record[it, 5:9] = old["quat"].cpu().numpy()
+            record[it, 9:] = old["trans"].cpu().numpy()
         best_loss = min(total_f, best_loss)
         prev_loss = total_f
         pose = new_pose
@@ -315,8 +318,10 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
                 cam: Camera, rcfg: RasterConfig, tcfg: TrackerConfig):
     """Candidate scoring (full-image renders), iteration doubling, then the
     refinement (tile subset + polish when configured, sorted backend only).
-    Returns (rel 4x4, exposure (2,), stats np.float32 of TRACK_STAT_NAMES)."""
-    check_config(tcfg)
+    Returns (rel 4x4, exposure (2,), stats np.float32 of TRACK_STAT_NAMES,
+    per_iter): with `debug_per_iter`, per_iter is the (2 x iterations, 12)
+    float32 record of DEBUG_ITER_NAMES (rows past the last iteration zero,
+    `active` 0) and the polish phase is off; else None."""
     colors = sh_to_rgb(params.f_dc)
     w = tcfg.w_color_loss
     cand, alphas = [], []
@@ -353,8 +358,12 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
     loss_fn = _make_loss_fn(params, alive, colors, init_rel, last_w2c,
                             gt_color, gt_depth, cam, rcfg, tcfg,
                             subset=subset)
+    per_iter = None
+    if tcfg.debug_per_iter:
+        per_iter = np.zeros((2 * tcfg.iterations, len(DEBUG_ITER_NAMES)),
+                            np.float32)
     polish = int(tcfg.polish_iters)
-    if subset is not None and polish > 0:
+    if subset is not None and polish > 0 and per_iter is None:
         n1 = max(num_iters - polish, 0)
         rel1, exp1, stats1, opt_state = _refine(loss_fn, init_rel, n1,
                                                 exposure0, tcfg)
@@ -374,10 +383,10 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
                          np.float32)
     else:
         rel, exposure, stats, _ = _refine(loss_fn, init_rel, num_iters,
-                                          exposure0, tcfg)
+                                          exposure0, tcfg, record=per_iter)
     stats = np.concatenate([stats, np.array([best, init_cl, init_dl],
                                             np.float32)])
-    return rel, exposure, stats
+    return rel, exposure, stats, per_iter
 
 
 class Tracker:
@@ -385,7 +394,6 @@ class Tracker:
     count, refinement, loss history for the doubling heuristic."""
 
     def __init__(self, tcfg: TrackerConfig, rcfg: RasterConfig, cam: Camera):
-        check_config(tcfg)
         self.tcfg = tcfg
         self.rcfg = rcfg
         self.cam = cam
@@ -393,6 +401,7 @@ class Tracker:
         self.frame_depth_loss = []
         self.init_pose_cnt = {"const_speed": 0, "previous": 0, "odometer": 0}
         self.iter_cnt = []
+        self.last_per_iter = None   # the last frame's record (debug_per_iter)
 
     def track(self, params, alive, last_c2w, init_candidates: dict,
               gt_color, gt_depth, exposure0=None):
@@ -411,7 +420,7 @@ class Tracker:
                 else torch.as_tensor(exposure0, dtype=torch.float32,
                                      device=dev))
         t0 = time.perf_counter()
-        rel, exposure, stats_vec = track_frame(
+        rel, exposure, stats_vec, self.last_per_iter = track_frame(
             params, alive, torch.as_tensor(rels, device=dev),
             torch.as_tensor(last_w2c, dtype=torch.float32, device=dev),
             gt_color, gt_depth, float(med_cl), float(med_dl), exp0,

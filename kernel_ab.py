@@ -3,6 +3,8 @@
 
     python3 kernel_ab.py                      # base, regs_free, reduce10
     python3 kernel_ab.py --parent DIR         # + K1's source from DIR
+    python3 kernel_ab.py --sass DIR           # default instances' SASS
+                                              # against DIR's
 
 Builds the port's kernels as they are (`base`) and as variants that each
 undo one design choice, every variant into its own library under
@@ -15,10 +17,20 @@ bit); then times them in four rounds that alternate the order (median of
   reduce10   K4 summing all 10 replay terms with reduce10 and keeping the
              6 pose terms, in place of reduce6
   parent_k1  K1's source taken from another checkout (DIR, e.g. a parent
-             commit unpacked with git archive)
+             commit unpacked with git archive) with the same C interface
+             (the variant argument `opts` before the stream)
 Prints the card's name and power limit, one JSON line per variant with the
 registers nvcc reports for K1, K4 and K5, the check, and the timings.
 Exits 1 without a CUDA card.
+
+`--sass DIR` compiles each kernel source of this tree and of DIR (e.g. a
+parent commit unpacked with git archive) to sm_90a machine code, one nvcc
+per source in parallel, and compares the instructions of every default
+instance (K1-K4's <..., false, false> variants, K5 / K6 as they are) with
+DIR's instance of the same tile shape, hex fields (addresses, branch
+targets, constants) masked. Prints one JSON line {kernel<template args>:
+{instructions, identical}}; exits 1 if one differs. Needs the CUDA toolkit,
+not a card.
 """
 import argparse
 import contextlib
@@ -38,16 +50,16 @@ REGS_FREE = [(f, f"{FWD_BOUNDS}\n{k}",
              for f, k in (("composite_sorted_fwd.cu", "fwd_kernel"),
                           ("composite_entries_fwd.cu", "entries_fwd_kernel"))]
 REDUCE10 = [("pose_grad_sorted.cu",
-             "eags::walk_chunk<PJ>(P, s_attr, s_box, jmax, lane, wm,\n"
-             "                         [&](int j, int ch, float v) {\n"
-             "                           s_warp[warp][ch][j] = v;\n"
-             "                         });",
-             "eags::walk_chunk<eags::NG>(P, s_attr, s_box, jmax, lane, wm,\n"
-             "                         [&](int j, int ch, float v) {\n"
-             "                           const int c = ch < 5 ? ch : "
-             "(ch == 9 ? 5 : -1);\n"
-             "                           if (c >= 0) s_warp[warp][c][j] = v;\n"
-             "                         });")]
+             "eags::walk_chunk<PJ, QUAD>(\n"
+             "        P, s_attr, s_box, jmax, lane, wm,\n"
+             "        [&](int j, int ch, float v) { s_warp[warp][ch][j] = v; }, "
+             "B, s_q);",
+             "eags::walk_chunk<eags::NG, QUAD>(\n"
+             "        P, s_attr, s_box, jmax, lane, wm,\n"
+             "        [&](int j, int ch, float v) {\n"
+             "          const int c = ch < 5 ? ch : (ch == 9 ? 5 : -1);\n"
+             "          if (c >= 0) s_warp[warp][c][j] = v;\n"
+             "        }, B, s_q);")]
 
 
 def build_variant(cs, name, subs=(), files=None):
@@ -74,18 +86,94 @@ def build_variant(cs, name, subs=(), files=None):
             fn = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         k = fn and re.search(r"(entries_fwd_kernel|fwd_kernel|pose_kernel)"
-                             r"ILi(\d+)ELi(\d+)", fn)
+                             r"ILi(\d+)ELi(\d+)E(?:Lb0ELb0E)?E", fn)
         if m and k:
             regs[f"{k.group(1)}<{k.group(2)},{k.group(3)}>"] = int(m.group(1))
             fn = None
     return lib, regs
 
 
+# K1-K4's kernels, whose last two template arguments are the variant.
+VARIANT_KERNELS = ("fwd_kernel", "bwd_kernel", "bwd_window_kernel",
+                   "pose_kernel")
+KERNEL_NAME = re.compile(r"\d(entries_fwd_kernel|entries_bwd_kernel|"
+                         r"bwd_window_kernel|pose_kernel|fwd_kernel|"
+                         r"bwd_kernel)I((?:Li\d+E|Lb[01]E)+)E")
+
+
+def _sass_functions(csrc: Path, out: Path) -> dict:
+    """{mangled name: [instruction text]} of every kernel in csrc/*.cu."""
+    from eags_slam_torch.ops import composite_sorted as cs
+
+    out.mkdir(parents=True, exist_ok=True)
+    names = sorted(p.name for p in csrc.glob("*.cu"))
+    procs = [subprocess.Popen(
+        [cs._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-cubin", "-o", str(out / (n + ".cubin")),
+         str(csrc / n)]) for n in names]
+    if any(p.wait() for p in procs):
+        raise SystemExit(f"nvcc failed on {csrc}")
+    cuobjdump = Path(cs._nvcc()).with_name("cuobjdump")
+    funcs, name = {}, None
+    for n in names:
+        text = subprocess.run([str(cuobjdump), "-sass",
+                               str(out / (n + ".cubin"))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                funcs[name] = []
+                continue
+            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+            if name and m:
+                funcs[name].append(re.sub(r"0x[0-9a-f]+", "X", m.group(1)))
+    return funcs
+
+
+def _default_instances(funcs: dict, variants: bool) -> dict:
+    """{kernel<tile args>: instructions} of the default instances; with
+    `variants`, K1-K4 carry <QUAD, BF16> last and only <false, false>
+    counts."""
+    out = {}
+    for name, body in funcs.items():
+        m = KERNEL_NAME.search(name)
+        if not m:
+            continue
+        kernel, targs = m.group(1), m.group(2)
+        if variants and kernel in VARIANT_KERNELS:
+            if not targs.endswith("Lb0ELb0E"):
+                continue
+            targs = targs[: -len("Lb0ELb0E")]
+        out[f"{kernel}<{targs}>"] = body
+    return out
+
+
+def compare_sass(other: str) -> bool:
+    """This tree's default kernel instances against `other`'s (a tree
+    from before the variants), instruction by instruction."""
+    mine = _default_instances(_sass_functions(
+        Path("eags_slam_torch/csrc"), BUILD / "sass" / "this"), True)
+    theirs = _default_instances(_sass_functions(
+        Path(other) / "eags_slam_torch/csrc", BUILD / "sass" / "other"),
+        False)
+    report = {k: {"instructions": len(v), "identical": mine.get(k) == v}
+              for k, v in sorted(theirs.items())}
+    print(json.dumps({"sass_against": other, "kernels": report}),
+          flush=True)
+    return bool(report) and all(r["identical"] for r in report.values())
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", help="checkout whose K1 source to time")
+    p.add_argument("--sass", help="checkout whose default kernels' SASS "
+                                  "to compare")
     p.add_argument("--rounds", type=int, default=4)
     args = p.parse_args()
+    if args.sass:
+        sys.exit(0 if compare_sass(args.sass) else 1)
 
     import torch
 

@@ -328,3 +328,50 @@ def test_box_keeps_every_contributing_pair_on_entry_layout(tile):
         n_contrib += int(live.sum())
         n_dup += int((live & dup[:, None, :]).sum())
     assert n_contrib > 0 and n_dup > 0
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_quad_box_keeps_every_quadform_pair(tile):
+    """The quadform variant culls with `quad_alpha_box`: the box widened by
+    the bound on the expanded form's float32 error. Over every pixel of a
+    tile far from the origin (where the global coordinates are large),
+    no pair of the twin's quadform alpha outside the widened box is
+    nonzero, for the property test's conic, opacity and mean hazards with
+    means up to a tile outside the tile. (-s prints the largest widening
+    of t where the projection can put a conic: its 0.3 px^2 low-pass keeps
+    a and c <= 1 / 0.3.)"""
+    rng = np.random.default_rng(tile)
+    n = cs.CHUNK
+    tx0, ty0 = float(1184 // tile * tile), float(672 // tile * tile)
+    basis = cs._basis(tile, "cpu")
+    lu, lv = basis[3], basis[4]
+    n_live, widest = 0, 0.0
+    for k in range(12):
+        a, b, c = _conics(rng, n, [1.0 + 1e-6, 4.0, 100.0, 1e3][k % 4],
+                          rng.uniform(-1.0, np.log(tile / 3.0)))
+        e = torch.zeros((10, 1, n), dtype=torch.float32)
+        e[0, 0] = torch.as_tensor(
+            tx0 + rng.uniform(-tile, 2 * tile, n)).float()
+        e[1, 0] = torch.as_tensor(
+            ty0 + rng.uniform(-tile, 2 * tile, n)).float()
+        e[0, 0, : n // 4] = torch.round(e[0, 0, : n // 4]) + 0.5
+        e[2, 0], e[3, 0], e[4, 0] = (torch.as_tensor(x) for x in (a, b, c))
+        e[5, 0] = torch.as_tensor(_opacities(rng, n))
+        ox, oy = torch.tensor([tx0]), torch.tensor([ty0])
+        alpha, _, u_, v_ = cs._chunk_alpha_quad(e, basis, ox, oy,
+                                                torch.tensor([n]))
+        box = cs.quad_alpha_box(e[0, 0], e[1, 0], e[2, 0], e[3, 0], e[4, 0],
+                                e[5, 0], u_[0], v_[0], tile)
+        pu, pv = (lu + tx0)[:, None], (lv + ty0)[:, None]
+        inside = ((box[0][None] <= pu) & (pu <= box[1][None])
+                  & (box[2][None] <= pv) & (pv <= box[3][None]))
+        live = alpha[0] > 0
+        assert not bool((live & ~inside).any())
+        n_live += int(live.sum())
+        au, av = tile + u_[0].abs(), tile + v_[0].abs()
+        s = (0.5 * (e[2, 0].abs() * au * au + e[4, 0].abs() * av * av)
+             + e[3, 0].abs() * au * av)
+        real = (e[2, 0] <= 1 / 0.3) & (e[4, 0] <= 1 / 0.3)
+        widest = max(widest, float((cs.BOX_QUAD_EPS * s)[real].max()))
+    print(f"quad box at tile {tile}: t widened by at most {widest:.4f}")
+    assert n_live > 0

@@ -20,7 +20,12 @@ quarter), at the TUM RGB-D map camera's (tile 32 on 540x380, the
 204-tile grid and a 51-tile quarter) and at the global refine's (tile 16
 on the full 1200x680 image, 3225 tiles, 300,000 and 1,200,000 gaussians),
 and a render on a
-tagged stream counts its launches apart from the main path's.
+tagged stream counts its launches apart from the main path's. The
+kernel_quadform / kernel_bf16 variants of K1-K4 run on the K1 / K2 cases
+(tiles 16 / 32 / 64, the wide grid, the 1/8 subset with repeats, the cull
+hazard scene) against their twins under the same option, K4 twice bit for
+bit, each launch counted under its variant; the autograd Function and the
+frozen-sorted K4 path take the options from their arguments.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -796,3 +801,106 @@ def test_tagged_stream_counts_apart(cuda_device):
     assert lc["fwd_launches"] == 1 and lc["bwd_launches"] == 1
     assert all(v == 0 for v in cs.counts().values())
     assert float(a.grad.abs().max()) > 0
+
+
+VARIANT_CASES = ("t16_full", "t32_eighth_repeated", "t32_wide_full",
+                 "t64_full", "hazard_t16", "hazard_t32_eighth", "hazard_t64")
+
+
+@pytest.mark.parametrize("variant", ["quadform", "bf16", "quadform_bf16"])
+@pytest.mark.parametrize("case", VARIANT_CASES)
+def test_kernel_variants_match_twins(case, variant, cuda_device):
+    """K1-K4 under kernel_quadform, kernel_bf16 and both against their
+    twins under the same option (the bf16 variants read the bf16 layout
+    of the same attrs): K1's outputs, survivors and columns as in the
+    default check, K2 / K3 grads 1e-3 of each row's max, K4 1e-3 of the
+    largest |dpose| and twice bit for bit; every launch counts under its
+    variant and none under the default."""
+    quad, bf16 = "quadform" in variant, "bf16" in variant
+    tile, seg_cap, inputs = _case_inputs(case, cuda_device)
+    attrs, ss, sc, tx, num_tiles = inputs
+    if bf16:
+        attrs = cs.to_bf16_layout(attrs)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    if K12_CASES[case][4] == "eighth":
+        p = torch.randperm(num_tiles, generator=gen, device=cuda_device)[
+            : max(2, round(num_tiles / 8))]
+        ids = torch.cat([p, p[:2]]).to(torch.int32)
+    args = (attrs, ss, sc, ids, tile, tx, 3, seg_cap)
+    cs.reset_counts()
+    out_k, cols_k = cs.composite_sorted_fwd(*args, quadform=quad)
+    out_t, cols_t = cs.composite_sorted_fwd_plain(*args, quadform=quad)
+    torch.cuda.synchronize()
+    _fwd_close(out_k, cols_k, out_t, cols_t)
+    dout = torch.randn(out_t.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    g_t = cs.composite_sorted_bwd_plain(attrs, ids, out_t, cols_t, dout,
+                                        tile, tx, quad)
+    assert float(g_t[:10].abs().max()) > 0
+    _grads_close(cs.composite_sorted_bwd(attrs, ids, out_k, cols_k, dout,
+                                         tile, tx, quad), g_t)
+    _grads_close(cs.composite_sorted_bwd_window(attrs, ss, ids, out_k,
+                                                cols_k, dout, tile, tx, 3,
+                                                seg_cap, 4, quad), g_t)
+    jac = torch.randn((cs.P_MAX * cs.PJ, attrs.shape[1]), generator=gen,
+                      device=cuda_device)
+    d_k = cs.pose_grad_sorted(attrs, jac, ids, out_k, cols_k, dout, tile, tx,
+                              quad)
+    d_k2 = cs.pose_grad_sorted(attrs, jac, ids, out_k, cols_k, dout, tile,
+                               tx, quad)
+    d_t = cs.pose_grad_sorted_plain(attrs, jac, ids, out_t, cols_t, dout,
+                                    tile, tx, quad)
+    torch.cuda.synchronize()
+    assert float((d_k - d_t).abs().max()) <= 1e-3 * float(d_t.abs().max())
+    assert torch.equal(d_k, d_k2)
+    vc = cs.variant_counts()
+    for kid, n in (("K1", 1), ("K2", 1), ("K3", 1), ("K4", 2)):
+        assert vc[kid][variant] == n and vc[kid]["default"] == 0, (kid, vc)
+
+
+@pytest.mark.parametrize("variant", ["quadform", "bf16", "quadform_bf16"])
+def test_variant_paths_launch_their_kernels(variant, cuda_device):
+    """The autograd Function (K1 + K2, and K3 with rmw_window) and the
+    frozen-sorted K4 path under an option launch that variant only, with
+    the twins' grads."""
+    quad, bf16 = "quadform" in variant, "bf16" in variant
+    attrs, ss, sc, tx, num_tiles = _inputs(32, 1024, 1500, cuda_device)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    lay = cs.to_bf16_layout(attrs) if bf16 else attrs
+    out_t, cols_t = cs.composite_sorted_fwd_plain(lay, ss, sc, ids, 32, tx,
+                                                  3, 1024, quad)
+    dout = torch.zeros_like(out_t)
+    dout[:, :5] = torch.randn(out_t[:, :5].shape, device=cuda_device,
+                              generator=torch.Generator(
+                                  device=cuda_device).manual_seed(3))
+    g_t = cs.composite_sorted_bwd_plain(lay, ids, out_t, cols_t, dout, 32,
+                                        tx, quad)
+    for window in (False, True):
+        a = attrs.clone().requires_grad_(True)
+        cs.reset_counts()
+        out = cs.composite_sorted(a, ss, sc, ids, 32, tx, 3, 1024, 4,
+                                  rmw_window=window, quadform=quad,
+                                  bf16=bf16)
+        (out * dout).sum().backward()
+        torch.cuda.synchronize()
+        vc = cs.variant_counts()
+        kb = "K3" if window else "K2"
+        assert vc["K1"][variant] == 1 and vc[kb][variant] == 1, vc
+        assert sum(v["default"] for v in vc.values()) == 0
+        _grads_close(a.grad, g_t)
+    t = _scene(1500, cuda_device, 1)
+    cfg = RasterConfig(tile=32, dup_side=3, seg_cap=1024, bands=3,
+                       kernel_quadform=quad, kernel_bf16=bf16)
+    fs = R.freeze_sorted(t["means"], t["q"], t["ls"], t["op"], t["col"],
+                         torch.eye(4, device=cuda_device), CAM, cfg)
+    qt = torch.tensor([0.999, 0.01, -0.02, 0.015, 0.01, -0.02, 0.03],
+                      device=cuda_device, requires_grad=True)
+    cs.reset_counts()
+    o = R.render_frozen_sorted_pose(fs, qt, torch.eye(4, device=cuda_device),
+                                    CAM, cfg)
+    (d4,) = torch.autograd.grad(o.color.sum() + 0.3 * o.depth.sum(), qt)
+    torch.cuda.synchronize()
+    vc = cs.variant_counts()
+    assert vc["K1"][variant] == 1 and vc["K4"][variant] == 1, vc
+    assert bool(torch.isfinite(d4).all()) and float(d4.abs().max()) > 0

@@ -87,7 +87,7 @@ def test_track_frame_matches_jax(variant):
         jnp.asarray(gt_color), jnp.asarray(gt_depth), jnp.float32(np.inf),
         jnp.float32(np.inf), jnp.zeros(2), JCAM, JRCFG, jt)
     tp = GaussianParams(**{k: torch.as_tensor(v) for k, v in d.items()})
-    t_rel, t_exp, t_stats = T.track_frame(
+    t_rel, t_exp, t_stats, _ = T.track_frame(
         tp, torch.as_tensor(alive), torch.as_tensor(rels), torch.eye(4),
         torch.as_tensor(gt_color), torch.as_tensor(gt_depth), np.inf, np.inf,
         torch.zeros(2), CAM, RCFG, tt)
