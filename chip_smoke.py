@@ -56,7 +56,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 of synthetic_hard at bench.py's 1.5/72 orbit, the edge VO
                 giving the odometer candidate; K1/K2/K4 launches (twins must
                 not run), odometer wins, VO keyframes and ms, the evaluator's
-                metrics, FPS, track / map ms, peak memory.
+                metrics, FPS, track / map ms, peak memory. Gate: ATE < 5
+                cm, PSNR > 19 dB, SSIM > 0.55.
+ 6b. mesh     - the mesh path on the card: a one-rank NCCL process group,
+                then c2f's frames with EAGS_BENCH_MESH=1 (force_mesh: the
+                mapper's plain loop) and EAGS_SP_TRACK=1 (the tracking
+                refinement tile-split over the mesh: K1 + K2 on the full
+                836-tile grid, no K4 though pose_grad_kernel is on); the
+                world-size-1 sp_map_step and sp_track_refine held against
+                the single-device functions on the run's final map and last
+                frame (loss within 1e-4, gradients rtol 2e-3 plus 1e-3 of
+                each leaf's largest for K2's atomics); K1 / K2 launches (no
+                K4, no twin), FPS, track / map ms, peak memory and the
+                collectives a frame beside c2f's numbers. Gate: c2f's
+                bounds.
   7. entries  - the slice's protocol with EAGS_RCFG=backend=pallas for that
                 run: candidate scoring, frozen-binning tracking and the
                 plain mapping loop all through K5 / K6 (no K1-K4 launch, no
@@ -89,7 +102,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 lc_drain stage, FPS, track / map / VO ms beside c2f's and
                 the SLAM loop's track / map ms split by whether a closer
                 pass was in flight, ATE and PSNR, peak memory. Gate: ATE
-                < 5 cm, PSNR > 19 dB, at least one closure, its
+                < 5 cm, PSNR > 19 dB, SSIM > 0.55, at least one closure, its
                 corrections drained into the live pose array and its
                 submaps' files rewritten.
  12. heavy    - bench.py's heavy evaluation on the lc phase's output
@@ -1457,10 +1470,9 @@ def phase_slice_mapopts(per_wall: int, n_frames: int, out_dir: str,
 
 def phase_c2f(n_frames: int, out_dir: str):
     """Gate: K4 launched and no twin; the odometer candidate won at least
-    one frame; every frame ran; ATE < 5 cm and PSNR > 19 dB (the
-    reference's bounds, tests/test_e2e_synthetic.py and
-    tests/test_e2e_hard.py). No SSIM gate: the scene's SSIM ceiling is
-    about 0.52 (the GT-pose bound of the JAX package)."""
+    one frame; every frame ran; ATE < 5 cm, PSNR > 19 dB and SSIM > 0.55
+    (the reference's bounds, tests/test_e2e_synthetic.py and
+    tests/test_e2e_hard.py:80-82)."""
     ok, line, report, gslam = _run_slam(c2f_config(out_dir, n_frames),
                                         n_frames, out_dir, "c2f")
     wins = report["tracker"]["init_pose_cnt"].get("odometer", 0)
@@ -1468,7 +1480,8 @@ def phase_c2f(n_frames: int, out_dir: str):
     ok &= (line["launches"]["fwd_launches"] > 0
            and line["launches"]["bwd_launches"] > 0
            and line["launches"]["pose_launches"] > 0 and wins >= 1
-           and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0)
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0
+           and line["ssim"] > 0.55)
     # The submap boundary at frame 20 starts submap 1 from the visible
     # gaussians of submap 0 when enough are visible (init_warm_start).
     emit({**line, "ok": ok, "odometer_wins": wins,
@@ -1477,6 +1490,196 @@ def phase_c2f(n_frames: int, out_dir: str):
           "vo_dt_ms": vo["mean_dt_ms"]})
     if not ok:
         raise SystemExit("c2f check failed")
+    return line
+
+
+def _grad_err(got: dict, want: dict) -> dict:
+    """Per leaf: max |got - want| over the tolerance rtol 2e-3 |want| +
+    1e-3 max |want| (<= 1 passes; module docstring, mesh)."""
+    out = {}
+    for k, w in want.items():
+        tol = 2e-3 * w.abs() + 1e-3 * float(w.abs().max())
+        out[k] = float(((got[k] - w).abs() / tol.clamp(min=1e-30)).max())
+    return out
+
+
+def _check_mesh_steps(gslam, frame, last_c2w, c2w) -> dict:
+    """The world-size-1 sp_map_step and sp_track_refine on the card against
+    the port's single-device functions on the same inputs: the mesh run's
+    final map, its last frame at its estimated pose (mapping) and from the
+    frame before (tracking). Loss within 1e-4; gradients within `_grad_err`
+    (rtol 2e-3, plus 1e-3 of the leaf's largest for K2's run-dependent
+    float atomics, as the kernels check's grad tolerance); the whole
+    refinement's pose and exposure deviation printed (not gated)."""
+    import numpy as np
+    import torch
+
+    from eags_slam_torch.core.gaussians import OPT_KEYS, GaussianState
+    from eags_slam_torch.core.sh import sh_to_rgb
+    from eags_slam_torch.ops.losses import isotropic_loss, ssim_batched
+    from eags_slam_torch.ops.rasterizer import gt_tiles, render_tiles
+    from eags_slam_torch.parallel import mesh as P
+    from eags_slam_torch.slam import tracker as T
+    from eags_slam_torch.utils import optim
+
+    cam, rcfg, mesh = gslam.cam, gslam.rcfg, gslam.mesh
+    color, depth = frame
+    dev = color.device
+    st = GaussianState(gslam.state.params, gslam.state.alive,
+                       optim.adam_init({k: getattr(gslam.state.params, k)
+                                        for k in OPT_KEYS}))
+    w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
+                          device=dev)
+    step, init_adam, _ = P.sp_map_step(mesh, cam, rcfg, gslam.mcfg)
+    _, _, loss_sp, g_sp = step(st, init_adam(st), color, depth, w2c)
+    # The single-device full-grid map loss (the tile-subset mapping loss
+    # over every tile).
+    ts = rcfg.tile
+    tiles_x, tiles_y = -(-cam.width // ts), -(-cam.height // ts)
+    ids = torch.arange(tiles_x * tiles_y, dtype=torch.int32, device=dev)
+    leaves = {k: getattr(st.params, k).detach().clone().requires_grad_(True)
+              for k in OPT_KEYS}
+    out = render_tiles(leaves["xyz"], leaves["quats"], leaves["log_scales"],
+                       leaves["opacity_logits"], sh_to_rgb(st.params.f_dc),
+                       w2c, ids, cam, rcfg, alive=st.alive)
+    gt_c = gt_tiles(color, ids, ts, tiles_x, tiles_y)
+    gt_d = gt_tiles(depth, ids, ts, tiles_x, tiles_y)
+    valid = T._in_image_mask(ids, ts, tiles_x, cam)
+    m = ((gt_d > 0) & ~torch.isnan(out.depth) & valid).to(torch.float32)
+    lam = gslam.mcfg.lambda_dssim
+    loss = ((1 - lam) * (torch.abs(out.color - gt_c) * m[..., None]).sum()
+            / torch.clamp(m.sum() * 3.0, min=1.0)
+            + lam * (1 - ssim_batched(torch.clamp(out.color, 0.0, 1.0),
+                                      gt_c).mean())
+            + (torch.abs(out.depth - gt_d) * m).sum()
+            / torch.clamp(m.sum(), min=1.0)
+            + isotropic_loss(leaves["log_scales"], st.alive))
+    gs = torch.autograd.grad(loss, [leaves[k] for k in OPT_KEYS])
+    alive = st.alive.to(torch.float32)
+    g_ref = {k: g * alive.reshape((-1,) + (1,) * (g.dim() - 1))
+             for k, g in zip(OPT_KEYS, gs)}
+    map_check = {"loss": float(loss_sp), "loss_ref": float(loss.detach()),
+                 "grad_err": _grad_err(g_sp, g_ref)}
+
+    # Tracking: the refinement's loss and pose gradient at the init pose,
+    # then the whole refinement, against the tracker's own full-grid
+    # refinement (its tile-subset path over every tile, K1 + K2).
+    tcfg = gslam.tcfg._replace(pose_grad_kernel=False)
+    last_w2c = torch.as_tensor(np.linalg.inv(last_c2w), dtype=torch.float32,
+                               device=dev)
+    init_rel = torch.as_tensor(np.linalg.inv(c2w) @ last_c2w,
+                               dtype=torch.float32, device=dev)
+    init_rel[:3, 3] += 0.01
+    refine, aux = P.sp_track_refine(mesh, cam, rcfg, tcfg)
+    p = st.params
+    ref_fn = T._make_loss_fn(
+        p, st.alive, sh_to_rgb(p.f_dc), init_rel, last_w2c, color, depth,
+        cam, rcfg, tcfg, subset=(ids, gt_c, gt_d, valid))
+    sp_fn = aux["make_loss"](p, st.alive, init_rel, last_w2c, color, depth)
+    pose0 = {"quat": T.rotmat_to_quat(init_rel[:3, :3]),
+             "trans": init_rel[:3, 3].clone(),
+             "exposure": torch.tensor([0.02, -0.01], device=dev)}
+    res = []
+    for fn in (sp_fn, ref_fn):
+        leaf = {k: v.clone().requires_grad_(True) for k, v in pose0.items()}
+        total, _ = fn(leaf)
+        g = torch.autograd.grad(total, [leaf["quat"], leaf["trans"],
+                                        leaf["exposure"]])
+        res.append((float(total.detach()),
+                    dict(zip(("quat", "trans", "exposure"), g))))
+    iters = tcfg.iterations
+    rel_sp, exp_sp, stats_sp = refine(p, st.alive, init_rel, last_w2c, color,
+                                      depth, torch.zeros(2, device=dev),
+                                      iters)
+    rel_ref, exp_ref, stats_ref, _ = T._refine(
+        ref_fn, init_rel, iters, torch.zeros(2, device=dev), tcfg)
+    track_check = {
+        "loss": res[0][0], "loss_ref": res[1][0],
+        "grad_err": _grad_err(res[0][1], res[1][1]),
+        "refine_iters": [float(stats_sp[3]), float(stats_ref[3])],
+        "refine_rel_max_dev": float((rel_sp - rel_ref).abs().max()),
+        "refine_exposure_max_dev": float((exp_sp - exp_ref).abs().max()),
+        "refine_best_loss": [float(stats_sp[0]), float(stats_ref[0])]}
+    ok = all(abs(c["loss"] - c["loss_ref"]) < 1e-4
+             and max(c["grad_err"].values()) <= 1.0
+             for c in (map_check, track_check))
+    return {"ok": ok, "sp_map_step": map_check,
+            "sp_track_refine": track_check}
+
+
+def phase_mesh(n_frames: int, out_dir: str, c2f_line):
+    """The mesh path on one card: a one-rank NCCL process group, then
+    bench.py's quick protocol (the c2f phase's configuration) with
+    EAGS_BENCH_MESH=1 (force_mesh: the mapping's mesh path, the plain loop)
+    and EAGS_SP_TRACK=1 (the tracking refinement tile-split over the mesh,
+    K1 + K2 on the full grid, no K4 whatever pose_grad_kernel says). Gate:
+    the group is NCCL at world size 1, the mesh was built with the split
+    refinement, K1 and K2 launched and no twin, no K4 launch, every frame
+    ran, ATE < 5 cm, PSNR > 19 dB and SSIM > 0.55 (tests/test_e2e_hard.py's
+    bounds), and the world-size-1 sp_map_step / sp_track_refine held
+    against the single-device functions (`_check_mesh_steps`). Prints FPS,
+    track / map ms, peak memory and the collectives a frame beside c2f's
+    numbers from the same call."""
+    import torch
+    import torch.distributed as dist
+
+    from eags_slam_torch.bench import make_config
+    from eags_slam_torch.parallel import mesh as P
+
+    P.init_process_group(torch.device("cuda"))
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise SystemExit("mesh: no one-rank NCCL group")
+        os.environ["EAGS_BENCH_MESH"] = "1"
+        try:
+            config = make_config(n_frames, out_dir, lc=False)
+        finally:
+            del os.environ["EAGS_BENCH_MESH"]
+        config.pop("bench_deadline_ts")
+        config["tracking"]["pose_grad_kernel"] = True   # as in c2f
+        kept = {}
+
+        def keep_last_frames(gslam):
+            run = gslam.run
+
+            def run_and_keep():
+                report = run()
+                n = report["frames"]
+                kept["frame"] = gslam.dataset.frame(n - 1)
+                kept["c2ws"] = gslam.estimated_c2ws[n - 2: n].copy()
+                return report
+            gslam.run = run_and_keep
+
+        os.environ["EAGS_SP_TRACK"] = "1"
+        try:
+            ok, line, report, gslam = _run_slam(config, n_frames, out_dir,
+                                                "mesh",
+                                                prepare=keep_last_frames)
+        finally:
+            del os.environ["EAGS_SP_TRACK"]
+        checks = _check_mesh_steps(gslam, kept["frame"], kept["c2ws"][0],
+                                   kept["c2ws"][1])
+    finally:
+        dist.destroy_process_group()
+    la = line["launches"]
+    mesh = report["mesh"]
+    frames = max(report["frames"], 1)
+    ok &= (mesh["size"] == 1 and mesh["sp_track"] and mesh["replicated"]
+           and la["fwd_launches"] > 0 and la["bwd_launches"] > 0
+           and la["pose_launches"] == 0 and line["ate_cm"] < 5.0
+           and line["psnr_db"] > 19.0 and line["ssim"] > 0.55
+           and checks["ok"])
+    emit({**line, "ok": ok, "backend": "nccl", "world_size": 1,
+          "collectives": mesh["collectives"],
+          "collectives_per_frame": {k: v / frames for k, v in
+                                    mesh["collectives"].items()},
+          "checks": checks,
+          "c2f_same_call": None if c2f_line is None else {
+              k: c2f_line[k] for k in ("fps", "track_ms", "map_ms",
+                                       "peak_mem_gb", "ate_cm", "psnr_db",
+                                       "ssim")}})
+    if not ok:
+        raise SystemExit("mesh check failed")
     return line
 
 
@@ -1509,7 +1712,8 @@ def phase_lc(n_frames: int, out_dir: str, c2f_line):
     """bench.py's full protocol with loop closure on its own thread and
     stream (`eags_slam_torch.bench.make_config`, no deadline). Gate: the
     main path launched K1 and K2 and the closer launched K1 and K2 apart,
-    no twin; every frame ran; ATE < 5 cm and PSNR > 19 dB; at least one
+    no twin; every frame ran; ATE < 5 cm, PSNR > 19 dB and SSIM > 0.55; at
+    least one
     closure; its corrections drained into the live pose array; the files
     of the submaps it corrected rewritten (T_prev_m no longer the one saved
     at the boundary). An exception on the closer's thread fails the run.
@@ -1547,7 +1751,8 @@ def phase_lc(n_frames: int, out_dir: str, c2f_line):
            and ll["fwd_launches"] > 0 and ll["bwd_launches"] > 0
            and lc["n_closures"] >= 1 and lc["corrections_applied"] > 0
            and len(rewritten) > 0
-           and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0)
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0
+           and line["ssim"] > 0.55)
     lat = [{k: v for k, v in entry.items()
             if k in ("submap_id", "n_matches", "detect_ms", "register_ms",
                      "register_phases", "pgo_solve_ms", "pgo_ms",
@@ -2095,9 +2300,9 @@ def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
-                   default="device,build,kernels,slice,window,c2f,lc,"
-                   "heavy,entries,slice_k4,slice_opts,slice_mapopts,tum,"
-                   "replica")
+                   default="device,build,kernels,slice,window,c2f,mesh,"
+                   "lc,heavy,entries,slice_k4,slice_opts,slice_mapopts,"
+                   "tum,replica")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -2126,6 +2331,8 @@ def main():
     if "c2f" in phases:
         c2f_line = phase_c2f(C2F_FRAMES, args.out + "_c2f")
         runs.append(c2f_line)
+    if "mesh" in phases:
+        runs.append(phase_mesh(C2F_FRAMES, args.out + "_mesh", c2f_line))
     lc_line = None
     if "lc" in phases:
         lc_line = phase_lc(LC_FRAMES, args.out + "_lc", c2f_line)

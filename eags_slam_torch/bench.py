@@ -25,9 +25,20 @@ mesh F-score (`mesh_f1`; the unseen-view depth-L1 off, as in bench.py)
 when more than 900 s of the deadline are left, then the global refine's
 PSNR (`global_psnr_db`, 2000 iterations) when more than 600 s are; a stage
 that raises leaves bench.py's `mesh_error` / `global_error` in place of
-its number. The last line, without a `phase`, carries both. bench.py's
-`EAGS_BENCH_MESH` (the multi-device mapping path) is not ported yet;
-`EAGS_GT_CAMERA` runs the protocol at ground-truth poses, as in bench.py.
+its number. The last line, without a `phase`, carries both.
+
+bench.py's switches: `EAGS_BENCH_MESH` sets `force_mesh` (the mapping's
+mesh path, on a one-rank NCCL group on one card; parallel/mesh.py), and
+`EAGS_GT_CAMERA` runs the protocol at ground-truth poses. The JAX
+orchestrator's run-level overrides apply, env over config:
+`EAGS_INIT_HALFRES`, `EAGS_INIT_WARM`, `EAGS_MAP_STALE`, `EAGS_STALE_BEST`,
+`EAGS_POSE_KERNEL` and `EAGS_SP_TRACK` (the tracking refinement split over
+the mesh), e.g.
+
+    EAGS_BENCH_MESH=1 EAGS_SP_TRACK=1 python -m eags_slam_torch.bench --quick
+
+Under torchrun (RANK / WORLD_SIZE set) every rank runs the protocol on the
+mesh of the run's cards and rank 0 prints the lines.
 `EAGS_BENCH_DEADLINE_S` (default 2700 s from `EAGS_BENCH_T0`, default now)
 stops a run cleanly between frames 180 s before the deadline, and the full
 run is skipped when less than 420 s are left. `--lc off` runs the same
@@ -53,6 +64,12 @@ METRIC = "e2e_slam_fps_replica_scale_full_system"
 RECON_MIN_LEFT_S = 900
 GLOBAL_MIN_LEFT_S = 600
 HEAVY_EVAL = {"unseen_views": 0, "global_refine_iters": 2000}
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _deadline_left() -> float:
@@ -111,6 +128,9 @@ def make_config(n_frames: int, out: str, device: str = "cuda",
         "registration": "gs_reg", "final": True,
         "capacity": 1 << 18,
     }
+    if os.environ.get("EAGS_BENCH_MESH"):
+        # The mapping's mesh path on the run's ranks (one card: one rank).
+        config["force_mesh"] = True
     t0 = float(os.environ.get("EAGS_BENCH_T0", "0") or time.time())
     total = float(os.environ.get("EAGS_BENCH_DEADLINE_S", "2700"))
     config["bench_deadline_ts"] = t0 + total - 180.0
@@ -222,6 +242,8 @@ def run_once(n_frames: int, out: str, phase: str, card_line: str,
     gslam = GaussianSLAM(config)
     try:
         report = gslam.run()
+        if _rank() != 0:       # rank 0 evaluates and prints
+            return report, None
         emit(report, {}, card_line, phase)
         q = evaluate_cheap(gslam, config, out)
         line = emit(report, q, card_line, phase)

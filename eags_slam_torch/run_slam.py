@@ -11,11 +11,24 @@ path, plus the heavy evaluation's files where the config turns it on
 (`evaluation.eval_mesh`: `reconstruction_metrics.json` and
 `mesh/cleaned_mesh.ply`; `evaluation.eval_global`:
 `rendering_metrics_global.json` and `mesh/global_splats.ply`).
+
+On a host with N cards, one process a card over the mesh (mapping
+data-parallel over the cards, loop closure on the last one above two;
+`tracking.sp_track` splits the tracking refinement over them), rank 0
+printing and writing:
+
+    torchrun --nproc_per_node N -m eags_slam_torch.run_slam <config>
 """
 import argparse
 import random
 
 import numpy as np
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def get_args(argv=None):
@@ -66,10 +79,16 @@ def main(argv=None):
     gslam = GaussianSLAM(config)
     try:
         report = gslam.run()
+        if _rank() != 0:       # rank 0 prints and evaluates
+            return
         print(f"FPS: {report['fps']:.3f}  ({report['total_s']:.1f}s for "
               f"{report['frames']} frames)")
         print(f"Track avg: {report['track_ms_avg']:.1f} ms, "
               f"Map avg: {report['map_ms_avg']:.1f} ms")
+        if "mesh" in report:
+            m = report["mesh"]
+            print(f"Mesh: {m['size']} ranks, sp_track {m['sp_track']}, "
+                  f"replicated {m['replicated']}")
         if not args.no_eval:
             from .evaluation.evaluator import Evaluator
 

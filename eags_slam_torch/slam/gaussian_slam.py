@@ -50,9 +50,26 @@ then the rest at full resolution with the full frame's descriptor) and
 `tracking.debug_per_iter` (each tracked frame's per-iteration record,
 `tracker.DEBUG_ITER_NAMES`, written to log.jsonl as "track_iters").
 
+The device mesh (parallel/mesh.py), one process per rank: with more than
+one rank in the run's process group (torchrun's, or one the caller made)
+and `use_mesh` (default true), mapping runs data-parallel over a mesh of
+n_map = n_dev - 1 ranks when n_dev > 2 (loop closure then on the last card),
+else of all n_dev; `force_mesh` gives a mesh of the run's ranks even at one
+rank (a one-rank group on an in-process store when there is none), so the
+mesh path runs on one card. `tracking.sp_track` (or `EAGS_SP_TRACK`) runs
+the tracker's refinement tile-split over the mesh. Every rank of the mesh
+runs this loop on replicated state; the tracked pose, the seed rows and the
+loop closer's corrections come from rank 0, which alone runs the closer and
+writes the output directory, the log and the submap files. Ranks outside
+the mesh wait in `run`.
+
+The run-level environment overrides of the JAX package apply, env over
+config: `EAGS_INIT_HALFRES`, `EAGS_INIT_WARM` and `EAGS_MAP_STALE` in the
+MapperConfig, `EAGS_STALE_BEST` and `EAGS_POSE_KERNEL` in the
+TrackerConfig, and `EAGS_SP_TRACK`.
+
 Not ported yet, each raising NotImplementedError when a config selects it:
-the device mesh (`use_mesh`, `force_mesh`, `sp_track`), the dense `jnp`
-backend and a VO pinned to another device (`vo.device`).
+the dense `jnp` backend and a VO pinned to another device (`vo.device`).
 """
 from __future__ import annotations
 
@@ -64,11 +81,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import save_config
 from ..core import gaussians as G
 from ..core.camera import Camera
 from ..datasets import get_dataset
+from ..parallel import mesh as P
 from ..ops.rasterizer import RasterConfig, apply_rcfg_env, check_config
 from ..vo.system import EdgeVO, VOConfig
 from ..vo.system import check_config as vo_check_config
@@ -89,15 +108,6 @@ def exceeds_motion_thresholds(c2w: np.ndarray, anchor_c2w: np.ndarray,
     rot = _rotation_angle_deg(anchor_c2w[:3, :3], c2w[:3, :3])
     trans = float(np.linalg.norm(c2w[:3, 3] - anchor_c2w[:3, 3]))
     return rot > rot_thre or trans > trans_thre
-
-
-def _check_slice(config: Dict) -> None:
-    tc = config["tracking"]
-    if (config.get("use_mesh", False) or config.get("force_mesh", False)
-            or tc.get("sp_track", False)):
-        raise NotImplementedError(
-            "use_mesh / force_mesh / sp_track: multi-device mapping and "
-            "tracking are not ported (ROADMAP Queue 1 item 12)")
 
 
 def raster_config(config: Dict, device: torch.device) -> RasterConfig:
@@ -142,10 +152,13 @@ def mapper_config(config: Dict, cam: Camera) -> M.MapperConfig:
         kf_block=int(mc.get("kf_block", 10)),
         freeze_frac=float(mc.get("freeze_frac", 0.0)),
         freeze_after=float(mc.get("freeze_after", 0.65)),
-        init_halfres_frac=float(mc.get("init_halfres_frac", 0.0)),
-        init_warm_start=bool(mc.get("init_warm_start", False)),
+        init_halfres_frac=float(os.environ.get(
+            "EAGS_INIT_HALFRES", mc.get("init_halfres_frac", 0.0))),
+        init_warm_start=bool(int(os.environ.get(
+            "EAGS_INIT_WARM", int(bool(mc.get("init_warm_start", False)))))),
         warm_min_visible=int(mc.get("warm_min_visible", 20000)),
-        stale_best_cnt=int(mc.get("stale_best_cnt", 0)),
+        stale_best_cnt=int(os.environ.get(
+            "EAGS_MAP_STALE", mc.get("stale_best_cnt", 0))),
     )
 
 
@@ -163,7 +176,8 @@ def tracker_config(config: Dict) -> TrackerConfig:
         mask_invalid_depth=bool(tc.get("mask_invalid_depth", False)),
         early_stop_thre=float(tc.get("early_stop_thre", 5.0e-5)),
         early_stop_cnt=int(tc["early_stop_cnt"]),
-        stale_best_cnt=int(tc.get("stale_best_cnt", 0)),
+        stale_best_cnt=int(os.environ.get(
+            "EAGS_STALE_BEST", tc.get("stale_best_cnt", 0))),
         plateau_patience=int(tc.get("scheduler_patience", 5)),
         plateau_factor=float(tc.get("scheduler_factor", 0.95)),
         init_err_ratio=float(tc["init_err_ratio"]),
@@ -172,15 +186,23 @@ def tracker_config(config: Dict) -> TrackerConfig:
         tile_subset_frac=float(tc.get("tile_subset_frac", 0.25)),
         polish_iters=int(tc.get("polish_iters", 0)),
         polish_frac=float(tc.get("polish_frac", 1.0)),
-        pose_grad_kernel=bool(tc.get("pose_grad_kernel", False)),
+        pose_grad_kernel=bool(int(os.environ.get(
+            "EAGS_POSE_KERNEL",
+            int(bool(tc.get("pose_grad_kernel", False)))))),
     )
+
+
+def sp_track_enabled(config: Dict) -> bool:
+    """`tracking.sp_track`, or `EAGS_SP_TRACK` over it."""
+    return bool(int(os.environ.get(
+        "EAGS_SP_TRACK",
+        int(bool(config["tracking"].get("sp_track", False))))))
 
 
 def check_run_config(config: Dict) -> None:
     """Every guard of a run's config, before anything is built: the
     branches that are not ported raise NotImplementedError, an unknown
     dataset name raises KeyError."""
-    _check_slice(config)
     get_dataset(config["data"]["dataset_name"])
     check_config(raster_config(config, torch.device(
         config.get("device", "cuda"))))
@@ -204,9 +226,18 @@ class GaussianSLAM:
             raise RuntimeError("config device is 'cuda' but no CUDA device "
                                "is available")
         check_run_config(config)
+        self._owns_group = False
+        self.mesh, lc_device = self._setup_mesh(config)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        # Rank 0 writes the output; the ranks outside the mesh (the loop
+        # closer's card, or every rank but 0 without a mesh) wait in run().
+        self.is_main = rank == 0
+        self.active = self.mesh.member if self.mesh is not None \
+            else self.is_main
         self.verbose = bool(config.get("verbose", False))
         self.output_path = config["data"]["output_path"]
-        self._setup_output_path()
+        if self.is_main:
+            self._setup_output_path()
 
         if dataset is None:
             dataset = get_dataset(config["data"]["dataset_name"])(
@@ -227,8 +258,11 @@ class GaussianSLAM:
         self.tcfg = tracker_config(config)
         self.gt_camera = bool(tc.get("gt_camera", False))
         self.logger = Logger(self.output_path, self.verbose,
-                             config.get("use_wandb", False))
-        self.tracker = Tracker(self.tcfg, self.rcfg, self.cam)
+                             config.get("use_wandb", False),
+                             enabled=self.is_main)
+        self.tracker = Tracker(self.tcfg, self.rcfg, self.cam,
+                               mesh=self.mesh,
+                               sp_track=sp_track_enabled(config))
 
         self.odometer: Optional[EdgeVO] = None
         self._vo_decoupled = bool(config.get("vo", {}).get("decoupled", True))
@@ -245,12 +279,13 @@ class GaussianSLAM:
         self.loop_closer = None
         self._lc_ranges_applied = 0
         self.lc_final = bool(config.get("lc", {}).get("final", True))
-        if config.get("lc", {}).get("enabled", False):
+        self._lc_enabled = bool(config.get("lc", {}).get("enabled", False))
+        if self._lc_enabled and self.is_main:
             from ..lc.loop_closure import LoopClosure
 
             self.loop_closer = LoopClosure(config, self.output_path,
                                            self.cam, self.dataset,
-                                           device=self.device)
+                                           device=lc_device)
 
         n = len(self.dataset)
         self.estimated_c2ws = np.tile(np.eye(4), (n, 1, 1))
@@ -275,6 +310,25 @@ class GaussianSLAM:
         self.seed_edges = {"vo": 0, "canny": 0}
         # Last, so that an error above leaves no thread behind.
         self.dataset.start_prefetch()
+
+    def _setup_mesh(self, config: Dict):
+        """The mesh (or None) and the loop closer's device. A process
+        group is joined or made under torchrun, with `force_mesh`, or when
+        the caller made one; n_dev is its size (1 without one)."""
+        force = bool(config.get("force_mesh", False))
+        if P.launched_by_torchrun() or force or dist.is_initialized():
+            self._owns_group = not dist.is_initialized()
+            self.device = P.init_process_group(self.device)
+        n_dev = dist.get_world_size() if dist.is_initialized() else 1
+        mesh, lc_device = None, self.device
+        if n_dev > 1 and bool(config.get("use_mesh", True)):
+            mesh = P.make_mesh(n_dev - 1 if n_dev > 2 else n_dev,
+                               device=self.device)
+            if n_dev > 2 and self.device.type == "cuda":
+                lc_device = torch.device("cuda", n_dev - 1)
+        elif force:
+            mesh = P.make_mesh(n_dev, device=self.device)
+        return mesh, lc_device
 
     # ------------------------------------------------------------------
     def _setup_output_path(self):
@@ -360,6 +414,8 @@ class GaussianSLAM:
         if all(f in self._kf_descs for f in self.submap_kf_frame_ids):
             descs = np.stack([self._kf_descs[f]
                               for f in self.submap_kf_frame_ids])
+        if not self.is_main:
+            return None
         sm = Submap.from_world_arrays(
             self.submap_id, anchor, Twm, T_prev_m, Tmc,
             self.submap_kf_frame_ids, pack_state(self.state), descs)
@@ -442,6 +498,9 @@ class GaussianSLAM:
             edges is None, True,
             self.mcfg.outlier_removal and not seed_as_new,
             generator=self._generator(key), gumbels=gumbels)
+        if self.mesh is not None:
+            rows, row_valid, n_valid = self._replicate_rows(rows, row_valid,
+                                                            n_valid)
         if self._n_alive + n_valid > self.state.capacity:
             self.state = G.expand_state(
                 self.state, G.bucket_for(self._n_alive + n_valid,
@@ -466,11 +525,12 @@ class GaussianSLAM:
                                            exposure)
             self.state, _, _, _, run_half = M.optimize_and_describe(
                 self.state, kfs_half, 1, iters_half, self.cam.scaled(1),
-                self.rcfg, self.mcfg, **self._samplers(self._key()))
+                self.rcfg, self.mcfg, mesh=self.mesh,
+                **self._samplers(self._key()))
         self.state, losses, n_alive, kf_desc, run_full = \
             M.optimize_and_describe(
                 self.state, self.kfs, self.n_kf + 1, iters - iters_half,
-                self.cam, self.rcfg, self.mcfg,
+                self.cam, self.rcfg, self.mcfg, mesh=self.mesh,
                 **self._samplers(self._key()))
         slot = self._next_kf_slot()
         if slot is not None:
@@ -501,10 +561,31 @@ class GaussianSLAM:
                 "iterations": run_half + run_full,
                 "halfres_iters": run_half}
 
+    def _replicate_rows(self, rows, row_valid, n_valid: int):
+        """Rank 0's seed rows on every rank of the mesh (one broadcast)."""
+        names = list(rows.as_dict())
+        out = P.broadcast_tensors(
+            self.mesh, [getattr(rows, k) for k in names]
+            + [row_valid, torch.tensor(n_valid, device=row_valid.device)])
+        return (G.GaussianParams(**dict(zip(names, out[:-2]))), out[-2],
+                int(out[-1]))
+
+    def _replicate_pose(self, c2w: np.ndarray, exposure):
+        """Rank 0's tracked pose and exposure on every rank of the mesh."""
+        c2w_t, exp_t = P.broadcast_tensors(self.mesh, [
+            torch.as_tensor(c2w, dtype=torch.float64, device=self.device),
+            torch.as_tensor(exposure, dtype=torch.float32,
+                            device=self.device)])
+        return c2w_t.cpu().numpy(), exp_t.cpu().numpy()
+
     def _apply_lc_corrections(self):
         """Left-multiply the drained correction ranges into the live pose
-        array (an open end covers the frames tracked since the submit)."""
-        corrs = self.loop_closer.drain_corrections()
+        array (an open end covers the frames tracked since the submit);
+        rank 0 drains, and broadcasts them over the mesh."""
+        corrs = (self.loop_closer.drain_corrections()
+                 if self.loop_closer is not None else None)
+        if self.mesh is not None:
+            corrs = P.broadcast_object(self.mesh, corrs)
         if not corrs:
             return
         for start, end, corr in corrs:
@@ -515,6 +596,9 @@ class GaussianSLAM:
     # ------------------------------------------------------------------
     def run(self) -> Dict:
         n = len(self.dataset)
+        if not self.active:
+            return {"frames": 0, "idle": True}
+        P.reset_collective_counts()
         t0 = time.perf_counter()
         deadline_ts = float(self.config.get("bench_deadline_ts", 0) or 0)
         frames_run = n
@@ -559,6 +643,8 @@ class GaussianSLAM:
                     self.state.params, self.state.alive,
                     self.estimated_c2ws[frame_id - 1], candidates,
                     gt_color, gt_depth)
+                if self.mesh is not None:
+                    c2w, exposure = self._replicate_pose(c2w, exposure)
                 self.estimated_c2ws[frame_id] = c2w
                 self.exposures_ab[frame_id] = np.asarray(exposure)
                 if self.odometer is not None and not self._vo_decoupled:
@@ -568,7 +654,7 @@ class GaussianSLAM:
                 stats["data_wait_ms"] = 1e3 * data_wait
                 self.logger.log_tracking(
                     frame_id, {k: float(v) for k, v in stats.items()})
-                if self.tcfg.debug_per_iter:
+                if self.tracker.last_per_iter is not None:
                     self.logger.log("track_iters", {
                         "frame_id": frame_id,
                         "names": list(TT.DEBUG_ITER_NAMES),
@@ -598,9 +684,10 @@ class GaussianSLAM:
                 stats["is_new"] = bool(is_new_submap or frame_id == 0)
                 self.logger.log_mapping(frame_id, stats)
 
-            if self.loop_closer is not None:
+            if self._lc_enabled:
                 t_d = time.perf_counter()
-                self.loop_closer.check_futures()
+                if self.loop_closer is not None:
+                    self.loop_closer.check_futures()
                 self._apply_lc_corrections()
                 self.stage_s["lc_drain"] += time.perf_counter() - t_d
 
@@ -610,10 +697,12 @@ class GaussianSLAM:
                 self.loop_closer.submit(self.submap_id, frames_run - 1,
                                         self.estimated_c2ws)
             self.loop_closer.finalize()
+        if self._lc_enabled:
             self._apply_lc_corrections()
         total = time.perf_counter() - t0
-        np.savez(os.path.join(self.output_path, "estimated_c2w.npz"),
-                 c2ws=self.estimated_c2ws, exposures=self.exposures_ab)
+        if self.is_main:
+            np.savez(os.path.join(self.output_path, "estimated_c2w.npz"),
+                     c2ws=self.estimated_c2ws, exposures=self.exposures_ab)
         report = {
             "frames": frames_run,
             "fps": frames_run / total,
@@ -633,11 +722,23 @@ class GaussianSLAM:
             },
             "tracker": self.tracker.report(),
         }
+        if self.mesh is not None:
+            # The replication guarantee, checked once: every rank ends on
+            # the same poses, map and optimiser state.
+            same = P.replicated(self.mesh, [
+                self.estimated_c2ws, self.exposures_ab,
+                *self.state.params.as_dict().values(), self.state.alive,
+                *self.state.adam.mu.values(), *self.state.adam.nu.values()])
+            report["mesh"] = {"size": self.mesh.size,
+                              "sp_track": self.tracker._sp_refine is not None,
+                              "replicated": same,
+                              "collectives": P.collective_counts()}
         if self.odometer is not None:
             report["vo"] = self.odometer.report()
-            self.odometer.dump_tum(
-                os.path.join(self.output_path, "vo_traj_tum.txt"),
-                self.dataset.timestamps)
+            if self.is_main:
+                self.odometer.dump_tum(
+                    os.path.join(self.output_path, "vo_traj_tum.txt"),
+                    self.dataset.timestamps)
         if self.loop_closer is not None:
             report["lc"] = {**self.loop_closer.report(),
                             "corrections_applied": self._lc_ranges_applied}
@@ -649,3 +750,6 @@ class GaussianSLAM:
             self.loop_closer.shutdown()
         self.dataset.close()
         self.logger.close()
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+            self._owns_group = False

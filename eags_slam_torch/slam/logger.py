@@ -16,12 +16,20 @@ def _np(x):
 
 
 class Logger:
+    """`enabled` False: log nothing and open no file (the ranks of a
+    multi-rank run other than rank 0)."""
+
     def __init__(self, output_path: str, verbose: bool = False,
-                 use_wandb: bool = False):
+                 use_wandb: bool = False, enabled: bool = True):
         self.output_path = output_path
+        self.enabled = enabled
         self.verbose = verbose
         self.use_wandb = use_wandb
         self._wandb = None
+        self._jsonl = None
+        if not enabled:
+            self.verbose = self.use_wandb = False
+            return
         if use_wandb:
             try:  # pragma: no cover - network-gated
                 import wandb
@@ -33,6 +41,8 @@ class Logger:
         self._jsonl = open(os.path.join(output_path, "log.jsonl"), "a")
 
     def log(self, kind: str, payload: Dict):
+        if not self.enabled:
+            return
         rec = {"t": time.time(), "kind": kind, **payload}
         self._jsonl.write(json.dumps(rec, default=float) + "\n")
         self._jsonl.flush()
@@ -89,4 +99,5 @@ class Logger:
             pass
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

@@ -23,6 +23,11 @@ resident loop is off under the subset, as in the JAX package.
 `halfres_single_kf` and `optimize_and_describe` are the two phases of the
 half-resolution submap init (`init_halfres_frac`, driven by
 `slam/gaussian_slam.py`).
+
+With a `mesh` (parallel/mesh.py) the plain loop runs, never the resident
+one; above one rank every rank draws the same n_dev keyframe indices each
+iteration, rank r renders the r-th, and the loss terms and the gradient are
+the ranks' means (`_mesh_step`, the JAX package's shard_map branch).
 """
 from __future__ import annotations
 
@@ -407,38 +412,42 @@ def _tile_loss(out, kfs: KeyframeBatch, kidx: int, tile_sel, cam: Camera,
 
 def _optimize_plain(state: GaussianState, kfs: KeyframeBatch, iterations,
                     cam, rcfg, mcfg, p_kf, lr_tree, book_step, book0,
-                    draw_kf, draw_tiles=None):
+                    draw_kf, draw_tiles=None, mesh_step=None):
     """The non-resident optimisation: every iteration draws a keyframe
     (`draw_kf(p_kf, it)`, 0 while it < 5), renders the rows in their
     canonical order (with `draw_tiles`, only the tiles `draw_tiles(it)`),
     masks the grads by `alive` and takes an Adam step and the bookkeeping
-    step."""
+    step. `mesh_step(leaves, alive, it) -> ((3,) loss terms, grads)` takes
+    the place of the draw, the render and the grads (the mesh branch)."""
     opt = {k: getattr(state.params, k) for k in OPT_KEYS}
     adam, alive, book = state.adam, state.alive, book0
     colors = sh_to_rgb(state.params.f_dc)
     losses = np.zeros((iterations, 3), np.float32)
     it = 0
     while it < iterations and not book.stopped:
-        kidx = int(draw_kf(p_kf, it))
         leaf = {k: v.detach().requires_grad_(True) for k, v in opt.items()}
-        if draw_tiles is None:
-            out = render(leaf["xyz"], leaf["quats"], leaf["log_scales"],
-                         leaf["opacity_logits"], colors, kfs.w2c[kidx], cam,
-                         rcfg, alive=alive)
-            total, cl, dl, _, _ = _map_loss(out, kfs, kidx,
-                                            leaf["log_scales"], alive,
-                                            mcfg.lambda_dssim)
+        if mesh_step is not None:
+            vals, grads = mesh_step(leaf, alive, it)
         else:
-            tile_sel = draw_tiles(it)
-            out = render_tiles(leaf["xyz"], leaf["quats"],
-                               leaf["log_scales"], leaf["opacity_logits"],
-                               colors, kfs.w2c[kidx], tile_sel, cam, rcfg,
-                               alive=alive)
-            total, cl, dl = _tile_loss(out, kfs, kidx, tile_sel, cam,
-                                       rcfg.tile, leaf["log_scales"], alive,
-                                       mcfg.lambda_dssim)
-        grads = _masked_grads(leaf, total, alive)
-        vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
+            kidx = int(draw_kf(p_kf, it))
+            if draw_tiles is None:
+                out = render(leaf["xyz"], leaf["quats"], leaf["log_scales"],
+                             leaf["opacity_logits"], colors, kfs.w2c[kidx],
+                             cam, rcfg, alive=alive)
+                total, cl, dl, _, _ = _map_loss(out, kfs, kidx,
+                                                leaf["log_scales"], alive,
+                                                mcfg.lambda_dssim)
+            else:
+                tile_sel = draw_tiles(it)
+                out = render_tiles(leaf["xyz"], leaf["quats"],
+                                   leaf["log_scales"], leaf["opacity_logits"],
+                                   colors, kfs.w2c[kidx], tile_sel, cam, rcfg,
+                                   alive=alive)
+                total, cl, dl = _tile_loss(out, kfs, kidx, tile_sel, cam,
+                                           rcfg.tile, leaf["log_scales"],
+                                           alive, mcfg.lambda_dssim)
+            grads = _masked_grads(leaf, total, alive)
+            vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
         vals = vals.cpu().numpy().astype(np.float32)
         new_opt, new_adam = optim.adam_update(
             adam, {k: v.detach() for k, v in leaf.items()}, grads, lr_tree)
@@ -447,6 +456,32 @@ def _optimize_plain(state: GaussianState, kfs: KeyframeBatch, iterations,
         losses[it] = vals
         it += 1
     return opt, adam, alive, book, it, losses
+
+
+def _mesh_step(mesh, kfs: KeyframeBatch, cam: Camera, rcfg: RasterConfig,
+               mcfg: MapperConfig, colors, p_kf, draw_kf):
+    """The mesh branch's iteration (a mesh of more than one rank): every
+    rank draws the same `n_dev` keyframe indices (all 0 while it < 5), rank
+    r renders keyframe kidxs[r] on the full image; the loss, its colour and
+    depth terms and the gradient are the ranks' means (one all-reduce)."""
+    from ..parallel.mesh import reduce_shares
+
+    axis = mesh.axis_names[0]
+    n_dev = mesh.shape[axis]
+
+    def step(leaf, alive, it):
+        kidx = int(draw_kf(p_kf, it, n_dev)[mesh.coord[axis]])
+        out = render(leaf["xyz"], leaf["quats"], leaf["log_scales"],
+                     leaf["opacity_logits"], colors, kfs.w2c[kidx], cam,
+                     rcfg, alive=alive)
+        total, cl, dl, _, _ = _map_loss(out, kfs, kidx, leaf["log_scales"],
+                                        alive, mcfg.lambda_dssim)
+        # Each rank's loss is a whole view's: the mean of the ranks'
+        # gradients is the exact one (summed, then divided, as JAX's pmean).
+        vals, grads = reduce_shares(mesh.groups[axis], [total, cl, dl],
+                                    _masked_grads(leaf, total, alive))
+        return vals / n_dev, {k: g / n_dev for k, g in grads.items()}
+    return step
 
 
 def _optimize_resident(state: GaussianState, kfs: KeyframeBatch, iterations,
@@ -570,12 +605,16 @@ def _optimize_resident(state: GaussianState, kfs: KeyframeBatch, iterations,
 
 def _default_kf_sampler(generator, device):
     """Keyframe 0 for blocks (or, in the plain loop, iterations) starting
-    below iteration 5, else a draw from `p_kf`."""
-    def draw(p_kf, it0):
+    below iteration 5, else a draw from `p_kf`; with `n`, a list of n such
+    indices (the mesh branch's draw, one a rank)."""
+    def draw(p_kf, it0, n=None):
         if it0 < 5:
-            return 0
+            return 0 if n is None else [0] * n
         p = torch.as_tensor(p_kf, dtype=torch.float32, device=device)
-        return int(torch.multinomial(p, 1, generator=generator))
+        if n is None:
+            return int(torch.multinomial(p, 1, generator=generator))
+        return torch.multinomial(p, n, replacement=True,
+                                 generator=generator).tolist()
     return draw
 
 
@@ -591,14 +630,17 @@ def _default_tile_sampler(generator, device, num_tiles: int, n_sub: int):
 def _optimize_core(state: GaussianState, kfs: KeyframeBatch, n_kf: int,
                    iterations: int, cam: Camera, rcfg: RasterConfig,
                    mcfg: MapperConfig, generator=None, kf_sampler=None,
-                   tile_sampler=None):
+                   tile_sampler=None, mesh=None):
     """Submap optimisation (slot 0 = the current frame): loss = (1 - l)
     masked L1 + l (1 - SSIM) + masked depth L1 + isotropic regulariser;
     checkpoint every 5%, prune (+ rollback) at 30% / 60%, early stop after
     the last prune, final rollback and opacity < 0.01 prune.
     `kf_sampler(p_kf, it0) -> keyframe index` is called once per block of
     the resident loop, once per iteration of the plain one; it replaces the
-    generator's draws (and must return 0 while it0 < 5). With
+    generator's draws (and must return 0 while it0 < 5). With a `mesh`
+    (parallel/mesh.py) the plain loop runs, never the resident one; above
+    one rank each iteration calls `kf_sampler(p_kf, it, n_dev) -> n_dev
+    indices` and rank r renders the r-th (`_mesh_step`). With
     `mcfg.tile_subset` on the sorted backend, `tile_sampler(it) -> (S,)
     int32 tile ids` (S = min(tile_subset, tiles)) is called once per
     iteration, after the keyframe draw, in place of the generator's.
@@ -637,11 +679,16 @@ def _optimize_core(state: GaussianState, kfs: KeyframeBatch, n_kf: int,
                        state.adam, False, 0, 0, False)
     args = (state, kfs, iterations, cam, rcfg, mcfg, p_kf, lr_tree,
             book_step, book0, draw_kf)
-    if sorted_backend and mcfg.kf_block > 0 and draw_tiles is None:
+    mesh_step = None
+    if mesh is not None and mesh.size > 1:
+        mesh_step = _mesh_step(mesh, kfs, cam, rcfg, mcfg,
+                               sh_to_rgb(state.params.f_dc), p_kf, draw_kf)
+    if (sorted_backend and mcfg.kf_block > 0 and draw_tiles is None
+            and mesh is None):
         opt, adam, alive, book, final_it, losses = _optimize_resident(*args)
     else:
         opt, adam, alive, book, final_it, losses = _optimize_plain(
-            *args, draw_tiles)
+            *args, draw_tiles, mesh_step)
     last = losses[max(final_it - 1, 0)]
     losses[final_it:] = last
     if book.has_ckpt and book.best_loss < book.ema:
@@ -695,7 +742,7 @@ def optimize_and_describe(state: GaussianState, kfs: KeyframeBatch,
                           n_kf: int, iterations: int, cam: Camera,
                           rcfg: RasterConfig, mcfg: MapperConfig,
                           generator=None, kf_sampler=None,
-                          tile_sampler=None):
+                          tile_sampler=None, mesh=None):
     """Optimise and describe slot 0 for place recognition, no insert: the
     full-resolution tail of a half-resolution submap init (the descriptor
     comes from the full-resolution boundary frame). Returns (state,
@@ -705,7 +752,7 @@ def optimize_and_describe(state: GaussianState, kfs: KeyframeBatch,
     new_state, aux = _optimize_core(state, kfs, n_kf, iterations, cam, rcfg,
                                     mcfg, generator=generator,
                                     kf_sampler=kf_sampler,
-                                    tile_sampler=tile_sampler)
+                                    tile_sampler=tile_sampler, mesh=mesh)
     desc = global_descriptor(kfs.color[0])
     return (new_state, aux["losses"], num_alive(new_state), desc,
             aux["iterations"])
@@ -714,11 +761,12 @@ def optimize_and_describe(state: GaussianState, kfs: KeyframeBatch,
 def insert_and_optimize(state: GaussianState, rows: GaussianParams, valid,
                         kfs: KeyframeBatch, n_kf: int, iterations: int,
                         cam: Camera, rcfg: RasterConfig, mcfg: MapperConfig,
-                        generator=None, kf_sampler=None, tile_sampler=None):
+                        generator=None, kf_sampler=None, tile_sampler=None,
+                        mesh=None):
     """Insert `seed_rows` output, optimise, and describe slot 0 for place
     recognition. Returns (state, n_added, losses, n_alive, desc)."""
     state, n_added = insert(state, rows, valid)
     new_state, losses, n_alive, desc, _ = optimize_and_describe(
         state, kfs, n_kf, iterations, cam, rcfg, mcfg, generator=generator,
-        kf_sampler=kf_sampler, tile_sampler=tile_sampler)
+        kf_sampler=kf_sampler, tile_sampler=tile_sampler, mesh=mesh)
     return new_state, n_added, losses, n_alive, desc

@@ -13,7 +13,10 @@ backward (K4) instead of the K2 grads and autograd through the
 reprojection. On the `pallas` backend it renders a frozen entry binning
 (`freeze_binning`, K5 / K6) on the full image. The JAX `lax.while_loop` is
 a Python loop here; its carry is plain Python/numpy scalars plus the pose
-tensors.
+tensors. With a mesh and `sp_track`, `Tracker` scores the candidates apart
+(`eval_init_candidates`) and refines over the mesh's split tile grid
+(parallel/mesh.py `sp_track_refine`: the full grid, no subset, no polish,
+no K4).
 """
 from __future__ import annotations
 
@@ -313,15 +316,12 @@ def _subset(gt_color, gt_depth, alpha, cam, ts, tiles_x, tiles_y, s):
             _in_image_mask(tile_ids, ts, tiles_x, cam))
 
 
-def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
-                gt_depth, med_cl: float, med_dl: float, exposure0,
-                cam: Camera, rcfg: RasterConfig, tcfg: TrackerConfig):
-    """Candidate scoring (full-image renders), iteration doubling, then the
-    refinement (tile subset + polish when configured, sorted backend only).
-    Returns (rel 4x4, exposure (2,), stats np.float32 of TRACK_STAT_NAMES,
-    per_iter): with `debug_per_iter`, per_iter is the (2 x iterations, 12)
-    float32 record of DEBUG_ITER_NAMES (rows past the last iteration zero,
-    `active` 0) and the polish phase is off; else None."""
+def eval_init_candidates(params: GaussianParams, alive, rel_mats, last_w2c,
+                         gt_color, gt_depth, cam: Camera, rcfg: RasterConfig,
+                         tcfg: TrackerConfig):
+    """Score the candidate relative poses on full-image renders: returns
+    ((C, 3) np.float32 rows of (total, colour, depth) loss, the C alpha
+    maps)."""
     colors = sh_to_rgb(params.f_dc)
     w = tcfg.w_color_loss
     cand, alphas = [], []
@@ -337,7 +337,21 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
             cl, dl = _losses_from_output(out, pose, gt_color, gt_depth, tcfg)
             cand.append(torch.stack([w * cl + (1 - w) * dl, cl, dl]))
             alphas.append(out.alpha)
-    cand = torch.stack(cand).cpu().numpy().astype(np.float32)
+    return torch.stack(cand).cpu().numpy().astype(np.float32), alphas
+
+
+def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
+                gt_depth, med_cl: float, med_dl: float, exposure0,
+                cam: Camera, rcfg: RasterConfig, tcfg: TrackerConfig):
+    """Candidate scoring (full-image renders), iteration doubling, then the
+    refinement (tile subset + polish when configured, sorted backend only).
+    Returns (rel 4x4, exposure (2,), stats np.float32 of TRACK_STAT_NAMES,
+    per_iter): with `debug_per_iter`, per_iter is the (2 x iterations, 12)
+    float32 record of DEBUG_ITER_NAMES (rows past the last iteration zero,
+    `active` 0) and the polish phase is off; else None."""
+    colors = sh_to_rgb(params.f_dc)
+    cand, alphas = eval_init_candidates(params, alive, rel_mats, last_w2c,
+                                        gt_color, gt_depth, cam, rcfg, tcfg)
     best = int(np.argmin(cand[:, 0]))
     init_rel = rel_mats[best]
     init_cl, init_dl = cand[best, 1], cand[best, 2]
@@ -391,17 +405,56 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
 
 class Tracker:
     """Host-side per-frame tracking flow: candidates, adaptive iteration
-    count, refinement, loss history for the doubling heuristic."""
+    count, refinement, loss history for the doubling heuristic. With a
+    `mesh` and `sp_track`, the refinement runs tile-split over the mesh
+    (parallel/mesh.py `sp_track_refine`): the candidates are scored apart
+    from it (`eval_init_candidates`, the mesh's first rank's scores and
+    poses broadcast to every rank), the iteration count doubled on the host,
+    and the per-iteration records of `debug_per_iter` are dropped."""
 
-    def __init__(self, tcfg: TrackerConfig, rcfg: RasterConfig, cam: Camera):
+    def __init__(self, tcfg: TrackerConfig, rcfg: RasterConfig, cam: Camera,
+                 mesh=None, sp_track: bool = False):
         self.tcfg = tcfg
         self.rcfg = rcfg
         self.cam = cam
+        self.mesh = mesh
         self.frame_color_loss = []
         self.frame_depth_loss = []
         self.init_pose_cnt = {"const_speed": 0, "previous": 0, "odometer": 0}
         self.iter_cnt = []
         self.last_per_iter = None   # the last frame's record (debug_per_iter)
+        self._sp_refine = None
+        if mesh is not None and sp_track:
+            from ..parallel.mesh import sp_track_refine
+
+            if tcfg.debug_per_iter:
+                import warnings
+
+                warnings.warn("sp_track drops debug_per_iter records "
+                              "(per-iteration diagnostics stay on the "
+                              "single-device path)")
+            self._sp_refine, _ = sp_track_refine(mesh, cam, rcfg, tcfg)
+
+    def _track_sp(self, params, alive, rels, last_w2c, gt_color, gt_depth,
+                  med_cl: float, med_dl: float, exp0):
+        from ..parallel.mesh import broadcast_tensors
+
+        cand, _ = eval_init_candidates(params, alive, rels, last_w2c,
+                                       gt_color, gt_depth, self.cam,
+                                       self.rcfg, self.tcfg)
+        cand, rels = broadcast_tensors(
+            self.mesh, [torch.as_tensor(cand, device=rels.device), rels])
+        cand = cand.cpu().numpy()
+        best = int(np.argmin(cand[:, 0]))
+        double = (cand[best, 1] > self.tcfg.init_err_ratio * med_cl
+                  or cand[best, 2] > self.tcfg.init_err_ratio * med_dl)
+        num_iters = (2 if double else 1) * self.tcfg.iterations
+        rel, exposure, stats = self._sp_refine(
+            params, alive, rels[best], last_w2c, gt_color, gt_depth, exp0,
+            num_iters)
+        stats = np.concatenate([stats, np.array(
+            [best, cand[best, 1], cand[best, 2]], np.float32)])
+        return rel, exposure, stats, None
 
     def track(self, params, alive, last_c2w, init_candidates: dict,
               gt_color, gt_depth, exposure0=None):
@@ -420,11 +473,15 @@ class Tracker:
                 else torch.as_tensor(exposure0, dtype=torch.float32,
                                      device=dev))
         t0 = time.perf_counter()
-        rel, exposure, stats_vec, self.last_per_iter = track_frame(
-            params, alive, torch.as_tensor(rels, device=dev),
-            torch.as_tensor(last_w2c, dtype=torch.float32, device=dev),
-            gt_color, gt_depth, float(med_cl), float(med_dl), exp0,
-            self.cam, self.rcfg, self.tcfg)
+        args = (params, alive, torch.as_tensor(rels, device=dev),
+                torch.as_tensor(last_w2c, dtype=torch.float32, device=dev),
+                gt_color, gt_depth, float(med_cl), float(med_dl), exp0)
+        if self._sp_refine is not None:
+            rel, exposure, stats_vec, self.last_per_iter = \
+                self._track_sp(*args)
+        else:
+            rel, exposure, stats_vec, self.last_per_iter = track_frame(
+                *args, self.cam, self.rcfg, self.tcfg)
         rel = rel.detach().cpu().numpy()
         exposure = exposure.detach().cpu().numpy()
         stats = dict(zip(TRACK_STAT_NAMES, (float(v) for v in stats_vec)))

@@ -48,6 +48,21 @@ def test_make_config_is_bench_py(monkeypatch, n_frames, gt_camera):
     assert t["bench_deadline_ts"] == 1000.0 + 2700 - 180.0
 
 
+def test_make_config_bench_mesh(monkeypatch):
+    """EAGS_BENCH_MESH sets force_mesh in both packages' configs."""
+    monkeypatch.setenv("EAGS_BENCH_T0", "1000.0")
+    monkeypatch.setenv("EAGS_BENCH_MESH", "1")
+    monkeypatch.delenv("EAGS_GT_CAMERA", raising=False)
+    j = _jax_bench().make_config(24, "out_j")
+    t = tbench.make_config(24, "out_t")
+    assert t["force_mesh"] is True and j["force_mesh"] is True
+    for cfg in (j, t):
+        cfg.pop("device")
+        cfg.pop("project_name")
+        cfg["data"].pop("output_path")
+    assert t == j
+
+
 def test_emit_keys(capsys):
     report = {"fps": 0.5, "frames": 72, "stage_totals_s": {"track": 1.0},
               "lc": {"n_closures": 3, "submit_ms_mean": 1234.56}}

@@ -169,8 +169,9 @@ def test_ported_raster_options_render(field, value):
 
 
 # Sections whose first entry is now ported keep their case with an added
-# entry that still raises: the VO pinned to another device. The mesh
-# options raise; every option of the map and track path is ported. The
+# entry that still raises: the VO pinned to another device. Every option of
+# the map and track path is ported, and so are the mesh options (wired
+# below; run over two ranks in tests/test_torch_parallel_e2e.py). The
 # ported branches run in tests/test_torch_config_branches.py (an edge crop
 # of the synthetic_hard frames and the Replica reader among them) and the
 # map and track options in tests/test_torch_config_options.py.
@@ -178,13 +179,59 @@ def test_ported_raster_options_render(field, value):
     {"tracking": {"odometry_type": "odometer"}, "vo": {"device": "cpu"}},
     {"tracking": {"help_camera_initialization": True},
      "vo": {"device": "cuda:1"}},
-    {"use_mesh": True},
-    {"force_mesh": True},
-    {"tracking": {"sp_track": True}},
 ], ids=lambda s: next(iter(s)) + "." + str(next(iter(s.values()))))
 def test_unported_config_branches_raise(tmp_path, sections):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GaussianSLAM(_tiny(tmp_path, **sections))
+
+
+@pytest.mark.parametrize("sections,mesh_size,sp", [
+    ({"use_mesh": True}, None, False),
+    ({"force_mesh": True}, 1, False),
+    ({"force_mesh": True, "tracking": {"sp_track": True}}, 1, True),
+    ({"tracking": {"sp_track": True}}, None, False),
+], ids=["use_mesh", "force_mesh", "force_mesh.sp_track", "sp_track"])
+def test_mesh_options_are_wired(tmp_path, monkeypatch, sections, mesh_size,
+                                sp):
+    """The mesh options select the mesh paths as in the JAX package: one
+    process with no process group has one device, so `use_mesh` builds no
+    mesh; `force_mesh` builds a one-rank mesh on a one-rank gloo group
+    (made here, destroyed by cleanup); `sp_track` splits the refinement
+    over a mesh only. The force_mesh.sp_track case tracks two frames through
+    the split refinement, its collectives issued at world size 1."""
+    import torch.distributed as dist
+
+    monkeypatch.delenv("EAGS_SP_TRACK", raising=False)
+    frames = 3 if sp else 1
+    cfg = _tiny(tmp_path, frames, **_CHEAP)
+    for sec, d in sections.items():
+        if isinstance(d, dict):
+            cfg[sec].update(d)
+        else:
+            cfg[sec] = d
+    # Two intra-op threads: the suite runs in several processes at once.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    gslam = GaussianSLAM(cfg)
+    try:
+        assert (gslam.mesh.size if gslam.mesh is not None else None) \
+            == mesh_size
+        assert dist.is_initialized() is (mesh_size is not None)
+        assert (gslam.tracker._sp_refine is not None) is sp
+        report = gslam.run()
+    finally:
+        gslam.cleanup()
+        torch.set_num_threads(threads)
+    assert not dist.is_initialized()
+    assert report["frames"] == frames
+    if mesh_size is not None:
+        assert report["mesh"]["replicated"] is True
+        counts = report["mesh"]["collectives"]
+        # Two tracked frames: a pose broadcast each, and with sp_track the
+        # candidates' broadcast and the refinement's all-gathers (beside
+        # the one of the replication check).
+        assert counts["broadcast"] >= (4 if sp else 0)
+        assert (counts["all_gather"] > 1) is sp
 
 
 @pytest.mark.parametrize("alone", [False, True])
