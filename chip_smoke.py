@@ -6,7 +6,10 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   - CUDA must be present; card name and power limit
                 (nvidia-smi); the Pillow version (null without it: the
-                replica phase's JPEG needs it); TF32 off for matmuls and
+                replica phase's JPEG needs it); whether the native frame
+                loader's library loads ("tracked": native/libloader.so;
+                "built": native/loader.cpp compiled into build/; null,
+                with each attempt's error); TF32 off for matmuls and
                 convolutions.
   2. build    - K1-K6 from eags_slam_torch/csrc: one nvcc per source, in
                 parallel, then one link, all with FMA (every kernel rounds
@@ -47,6 +50,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (twins must not run); the port's evaluator: ATE, and PSNR /
                 SSIM / MS-SSIM / depth-L1 of the saved submaps rendered at
                 the estimated poses; FPS, track / map ms, peak device memory.
+ 4b. lpips    - LPIPS(alex) on seeded weights with AlexNet's shapes
+                (a temporary file; the module's path pointed at it): two
+                1200x680 images on the card and on the CPU within 1e-4
+                relative, ms a call; the evaluator's rendering stage on the
+                slice's output directory, its mean_lpips finite.
+ 4c. dense    - the golden check: the dense reference splatter
+                (`ops/rasterizer_ref.py` render_dense) on the card against
+                the jnp backend, K1 and K5 at the JAX rasterizer tests'
+                cameras (48x32, 128x64 at tiles 32 and 64) and tolerances,
+                the kernels launched and no twin; then the slice's
+                protocol for 3 frames on the dense `jnp` backend
+                (EAGS_RCFG=backend=jnp, tile_capacity 1024): no K1-K6
+                launch, no twin, ATE < 5 cm, PSNR > 20 dB; FPS, track / map
+                ms and peak memory beside the slice's.
   5. window   - the slice's 12 frames again with `mapping.rmw_window` on:
                 every sorted backward (tracking and mapping) through K3, no
                 K2 launch; the same gates and metrics, and the default
@@ -58,6 +75,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 not run), odometer wins, VO keyframes and ms, the evaluator's
                 metrics, FPS, track / map ms, peak memory. Gate: ATE < 5
                 cm, PSNR > 19 dB, SSIM > 0.55.
+ 6a. vo_cpu   - c2f's 24 frames with `vo.device: cpu`: the edge VO on the
+                host CPU, pipelined one frame ahead on its worker thread;
+                c2f's gates, every VO step on CPU tensors and frames 1-23
+                stepped on the worker; FPS, track / map / VO ms and the
+                loop's wait for the VO a frame beside c2f's.
  6b. mesh     - the mesh path on the card: a one-rank NCCL process group,
                 then c2f's frames with EAGS_BENCH_MESH=1 (force_mesh: the
                 mapper's plain loop) and EAGS_SP_TRACK=1 (the tracking
@@ -124,6 +146,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 after, peak memory). Gates: faces > 0, F1 > 0.4, global
                 PSNR > 19 dB, every number finite, no twin, and
                 mesh/global_splats.ply read back with the alive count.
+ 12b. mesh_bound - `python -m eags_slam_torch.mesh_bound`'s main at bench
+                scale (72 frames, every 5th fused, voxel 5/512, both grid
+                bounds): GT depth at GT poses through the evaluator's TSDF,
+                mesh and metrics. Gate: faces and a finite F1 on each line,
+                the depth-bounds F1 above the heavy phase's F1 of the same
+                call; F1, precision, recall and wall seconds beside the
+                reference's 0.797.
  13. tum      - the TUM RGB-D reader at configs/TUM_RGBD/fr1_desk.yaml's
                 full size: 24 frames of synthetic_hard rendered at its
                 calibration (640x480), colour pre-distorted with its lens
@@ -140,8 +169,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 camera's pixels, the map camera 540x380 and the VO stepped
                 on 640x480 frames, every mapped frame seeded from the VO's
                 edges (no Canny fallback), ATE < 5 cm, PSNR > 19 dB, no
-                twin. Prints FPS, track / map / VO ms, data_wait and the
-                preloader's decode ms a frame, a Paeth-filtered frame's
+                twin. Prints FPS, track / map / VO ms, the reader that
+                ran (the native pool where its library loads, else the
+                Python preloader), data_wait and the preloader's decode ms
+                a frame (null under the native pool), a Paeth-filtered
+                frame's
                 decode alone (beside Pillow's), peak memory, K1 / K2
                 launches a frame.
  14. replica  - the Replica reader: 24 frames of bench.py's synthetic_hard
@@ -150,16 +182,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 configs/Replica/room0.yaml with the heavy evaluation off
                 (the heavy phase covers it); the tum phase's gates.
  15. tum_cost - not run by default (`--phases ...,tum,tum_cost`): what the
-                reader costs the loop. The tum phase's 24 frames run six
-                more times from three sources: the reader (decode on the
-                preloader thread beside the loop), the reader handed the
-                same frames decoded beforehand (thread and pinned uploads,
-                no decode) and an ArrayDataset of those frames on the
-                card; reader / cached / decoded / decoded / cached /
-                reader. Prints FPS, track / map / VO ms and data_wait of
-                each run and each source's FPS over the reader's. Gate:
-                every run's frames and the tum gates on ATE and PSNR, no
-                twin.
+                reader costs the loop. The tum phase's 24 frames run eight
+                more times from four sources: the reader on its Python
+                preloader (decode beside the loop), the native pool (when
+                its library loads; its frames first held equal to the
+                Python reader's), the reader handed the same frames decoded
+                beforehand (thread and pinned uploads, no decode) and an
+                ArrayDataset of those frames on the card; reader / native /
+                cached / decoded / decoded / cached / native / reader
+                (without the pool: six runs, no native). Prints FPS, track
+                / map / VO ms and data_wait of each run and each source's
+                FPS over the reader's. Gate: every run's frames and reader,
+                the tum gates on ATE and PSNR, no twin.
 Then the kernel summary line (K1-K4 launches also by variant: default,
 quadform, bf16, quadform_bf16, with each variant's times and bounds; K5 /
 K6 launches also by layout: render binning, frozen tracking binning; K1 / K2 at the global shape and
@@ -365,10 +399,14 @@ def phase_device():
         pillow = PIL.__version__
     except ImportError:
         pillow = None
+    from eags_slam_torch.utils import native_loader
+
+    native = native_loader.status()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "pillow": pillow, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "native": native["native"],
+          "native_errors": native["errors"]})
     return card
 
 
@@ -1484,10 +1522,11 @@ def phase_c2f(n_frames: int, out_dir: str):
            and line["ssim"] > 0.55)
     # The submap boundary at frame 20 starts submap 1 from the visible
     # gaussians of submap 0 when enough are visible (init_warm_start).
+    line = {**line, "vo_ms": vo["mean_track_ms"],
+            "vo_wait_ms": _mean_log(out_dir, "tracking", "vo_wait_ms")}
     emit({**line, "ok": ok, "odometer_wins": wins,
           "submaps": gslam.submap_id + 1, "warm_started": gslam._warm_inited,
-          "vo_keyframes": vo["n_keyframes"], "vo_ms": vo["mean_track_ms"],
-          "vo_dt_ms": vo["mean_dt_ms"]})
+          "vo_keyframes": vo["n_keyframes"], "vo_dt_ms": vo["mean_dt_ms"]})
     if not ok:
         raise SystemExit("c2f check failed")
     return line
@@ -2088,6 +2127,7 @@ def _run_reader(phase: str, config, n_frames: int, out_dir: str,
         "vo_keyframes": report["vo"]["n_keyframes"],
         "seed_edges": seeds,
         "data_wait_ms": report["data_wait_ms_avg"],
+        "reader": report["data"]["reader"],
         "decode_ms": report["data"]["decode_ms_avg"],
         "frames_decoded": report["data"]["decoded"],
         "k1_launches_per_frame": la["fwd_launches"] / report["frames"],
@@ -2195,31 +2235,56 @@ def phase_tum_cost(config, out_dir: str, card: str):
     > 19 dB, no twin."""
     import numpy as np
 
-    from eags_slam_torch.datasets import TUM_RGBD, ArrayDataset
+    from eags_slam_torch.datasets import TUM_RGBD, ArrayDataset, FileDataset
+    from eags_slam_torch.utils import native_loader
 
-    host = TUM_RGBD(config, device="cpu")
+    class Python(TUM_RGBD):
+        """The reader on its Python preloader (its own _load_raw keeps
+        the native pool out)."""
+
+        def _load_raw(self, idx):
+            return FileDataset._load_raw(self, idx)
+
+    host = Python(config, device="cpu")
     frames = [host.get_origin_image(i) for i in range(len(host))]
     host.close()
+    # The native pool's frames (decoded by the pool, undistorted after):
+    # exactly the Python reader's.
+    native_ok = native_loader.status()["native"] is not None
+    native_equal = None
+    if native_ok:
+        nat = TUM_RGBD(config, device="cpu")
+        nat.start_prefetch()
+        try:
+            native_equal = nat.report()["reader"] == "native" and all(
+                np.array_equal(a, b) for i, (c, d) in enumerate(frames)
+                for a, b in zip(nat.get_origin_image(i), (c, d)))
+        finally:
+            nat.close()
 
     class Cached(TUM_RGBD):
         def _load_raw(self, idx):
             return frames[idx]
 
     def source_dataset(source):
+        if source == "reader":
+            return Python(config)
+        if source == "native":
+            return TUM_RGBD(config)
         if source == "cached":
             return Cached(config)
-        if source == "decoded":
-            ds = ArrayDataset(config, np.stack([c for c, _ in frames]),
-                              np.stack([d for _, d in frames]), host.poses,
-                              device=config["device"])
-            ds.timestamps = list(host.timestamps)
-            return ds
-        return None
+        ds = ArrayDataset(config, np.stack([c for c, _ in frames]),
+                          np.stack([d for _, d in frames]), host.poses,
+                          device=config["device"])
+        ds.timestamps = list(host.timestamps)
+        return ds
 
     keys = ("fps", "track_ms", "map_ms", "vo_ms", "data_wait_ms",
             "ate_cm", "psnr_db")
-    order = ("reader", "cached", "decoded", "decoded", "cached", "reader")
-    runs, ok = [], True
+    order = (("reader", "native", "cached", "decoded", "decoded", "cached",
+              "native", "reader") if native_ok else
+             ("reader", "cached", "decoded", "decoded", "cached", "reader"))
+    runs, ok = [], native_equal is not False
     for k, source in enumerate(order):
         run_dir = f"{out_dir}_{k}"
         cfg = {**config, "data": {**config["data"], "output_path": run_dir}}
@@ -2228,13 +2293,17 @@ def phase_tum_cost(config, out_dir: str, card: str):
                                             dataset=source_dataset(source))
         line.update(vo_ms=report["vo"]["mean_track_ms"],
                     data_wait_ms=report["data_wait_ms_avg"])
-        ok &= run_ok and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0
-        runs.append({"source": source, **{f: line[f] for f in keys}})
+        want = {"reader": "python", "native": "native"}.get(source)
+        ok &= (run_ok and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0
+               and (want is None or report["data"]["reader"] == want))
+        runs.append({"source": source, "reader": report["data"].get(
+            "reader"), **{f: line[f] for f in keys}})
     fps = {s: sum(r["fps"] for r in runs if r["source"] == s)
            for s in set(order)}
     emit({"phase": "tum_cost", "ok": ok, "card": card, "runs": runs,
+          "native_frames_equal_python": native_equal,
           "fps_over_reader": {s: fps[s] / fps["reader"]
-                              for s in ("cached", "decoded")}})
+                              for s in set(order) - {"reader"}}})
     if not ok:
         raise SystemExit("tum_cost check failed")
 
@@ -2297,12 +2366,313 @@ def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
     return line
 
 
+# The dense `jnp` backend: the slice's protocol (1200x680, tile 32, the
+# synthetic room) cut to DENSE_FRAMES frames (frame 0's 360-iteration init,
+# frame 2 tracked and mapped; a dense mapping iteration takes ~0.43 s
+# there, so frame 0 alone takes ~2.5 min) and bench.py's tile_capacity; the
+# golden check at the JAX rasterizer tests' cameras (tests/test_rasterizer
+# .py, test_rasterizer_v2.py:13,169, test_rasterizer_pallas.py).
+DENSE_FRAMES = 3
+DENSE_TILE_CAPACITY = 1024
+GOLDEN_CAMS = {"48x32": (60.0, 60.0, 23.5, 15.5, 48, 32),
+               "128x64": (90.0, 90.0, 63.5, 31.5, 128, 64)}
+# (camera, RasterConfig fields, tolerance): the matching JAX test's.
+GOLDEN = {
+    "jnp_48x32": ("48x32", dict(tile=16, dup_side=4, tile_capacity=128,
+                                chunk=32, backend="jnp"), "v1"),
+    "K1_48x32": ("48x32", dict(tile=16, dup_side=4, backend="sorted",
+                               seg_cap=256, bands=3), "v2"),
+    "K1_128x64_t32": ("128x64", dict(tile=32, dup_side=3, backend="sorted",
+                                     seg_cap=256, bands=3), "bulk"),
+    "K1_128x64_t64": ("128x64", dict(tile=64, dup_side=2, backend="sorted",
+                                     seg_cap=384, bands=3), "bulk"),
+    "K5_48x32": ("48x32", dict(tile=16, dup_side=4, backend="pallas",
+                               max_per_tile=256), "v2"),
+}
+# Absolute (colour, depth, alpha) tolerances; "bulk": max 2e-3, mean 2e-5
+# and at most 0.1% of pixels above 2e-4 on colour and alpha
+# (test_rasterizer_v2.py's big-tile test).
+GOLDEN_TOL = {"v1": (2e-5, 2e-4, 2e-5), "v2": (1e-4, 1e-3, 1e-4)}
+
+
+def _golden_scene(cam, seed: int):
+    """The JAX rasterizer tests' scene on the card: 48 gaussians on the
+    48x32 camera, 96 on the 128x64 one, identity pose."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    big = cam.width > 64
+    n, wx = (96, 0.8) if big else (48, 0.6)
+    means = np.stack([rng.uniform(-wx, wx, n), rng.uniform(-0.4, 0.4, n),
+                      rng.uniform(1.0, 3.0, n)], -1).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return [torch.as_tensor(a, device="cuda") for a in (
+        means, q, np.log(rng.uniform(0.02, 0.07, (n, 3))).astype(np.float32),
+        rng.uniform(-1.0, 3.0, (n, 1)).astype(np.float32),
+        rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        np.eye(4, dtype=np.float32))]
+
+
+def _check_golden():
+    """render_dense on the card against the jnp backend, K1 and K5 at the
+    JAX tests' cameras and tolerances (GOLDEN); the kernels launch, no
+    twin. Returns (ok, {case: errors})."""
+    import torch
+
+    from eags_slam_torch.core.camera import Camera
+    from eags_slam_torch.ops import composite_entries as ce
+    from eags_slam_torch.ops import composite_sorted as cs
+    from eags_slam_torch.ops.rasterizer import RasterConfig, render
+    from eags_slam_torch.ops.rasterizer_ref import render_dense
+
+    ok, res = True, {}
+    launch_key = {"sorted": "fwd_launches", "pallas": "entries_fwd_launches"}
+    for case, (cam_name, kw, tol) in GOLDEN.items():
+        cam = Camera(*GOLDEN_CAMS[cam_name])
+        args = _golden_scene(cam, 0)
+        ref = render_dense(*args, cam, RasterConfig(tile=16, dup_side=4))
+        cs.reset_counts()
+        ce.reset_counts()
+        out = render(*args, cam, RasterConfig(**kw))
+        torch.cuda.synchronize()
+        c = {**cs.counts(), **ce.counts()}
+        err = {}
+        case_ok = (not any(c[k] for k in TWIN_KEYS)
+                   and all((c[k] > 0) == (k == launch_key.get(kw["backend"]))
+                           for k in launch_key.values())
+                   and float(out.alpha.max()) > 0.5)
+        for i, name in enumerate(("color", "depth", "alpha")):
+            d = (getattr(out, name) - getattr(ref, name)).abs()
+            err[name] = {"max": float(d.max()), "mean": float(d.mean()),
+                         "frac_above_2e-4": float((d > 2e-4).float().mean())}
+            if tol == "bulk":
+                if name != "depth":
+                    case_ok &= (err[name]["max"] < 2e-3
+                                and err[name]["mean"] < 2e-5
+                                and err[name]["frac_above_2e-4"] < 1e-3)
+            else:
+                case_ok &= err[name]["max"] <= GOLDEN_TOL[tol][i]
+        res[case] = {"ok": case_ok, "tol": tol, **err}
+        ok &= case_ok
+    return ok, res
+
+
+def phase_dense(per_wall: int, n_frames: int, out_dir: str, slice_line):
+    """The slice's protocol on the dense `jnp` backend (EAGS_RCFG=
+    backend=jnp for this run, mapping.tile_capacity 1024 as bench.py's):
+    candidate scoring, tracking and the plain mapping loop all render the
+    whole map in plain PyTorch, tile_capacity gaussians a tile in chunks of
+    64 under torch.utils.checkpoint. First the golden check (_check_golden).
+    Gate: the golden cases within their tolerances; no K1-K6 launch and no
+    twin in the run; every frame ran; ATE < 5 cm and PSNR > 20 dB. Prints
+    FPS, track / map ms and peak memory beside the slice's."""
+    ok_g, golden = _check_golden()
+    config = bench_config(out_dir, n_frames, per_wall)
+    config["mapping"]["tile_capacity"] = DENSE_TILE_CAPACITY
+    ok, line, _, gslam = _run_slam(config, n_frames, out_dir, "dense",
+                                   rcfg_env="backend=jnp")
+    la = line["launches"]
+    ok &= (ok_g and gslam.rcfg.backend == "jnp"
+           and gslam.rcfg.tile_capacity == DENSE_TILE_CAPACITY
+           and not any(la.values())
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0)
+    emit({**line, "ok": ok, "scene_gaussians": gslam.dataset.n_scene,
+          "tile_capacity": gslam.rcfg.tile_capacity,
+          "chunk": gslam.rcfg.chunk, "golden": golden,
+          "slice_same_call": None if slice_line is None else {
+              k: slice_line[k] for k in ("fps", "track_ms", "map_ms",
+                                         "peak_mem_gb", "ate_cm",
+                                         "psnr_db")}})
+    if not ok:
+        raise SystemExit("dense check failed")
+    return line
+
+
+def _mean_log(out_dir: str, kind: str, key: str):
+    """The mean of `key` over the log.jsonl records of `kind` that have
+    it, or None."""
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        vals = [r[key] for r in map(json.loads, f)
+                if r["kind"] == kind and key in r]
+    return sum(vals) / len(vals) if vals else None
+
+
+def phase_vo_cpu(n_frames: int, out_dir: str, c2f_line):
+    """c2f's 24 frames with `vo.device: cpu`: the edge VO on the host CPU,
+    pipelined one frame ahead on its worker thread (decoupled: frame f+1's
+    step runs beside frame f's tracking and mapping on the card). Gate:
+    c2f's (K1 / K2 / K4 launched, no twin, the odometer won a frame, ATE <
+    5 cm, PSNR > 19 dB, SSIM > 0.55), every VO step on CPU tensors, frames
+    1-23 stepped on the worker (23 pipelined). Prints FPS, track / map / VO
+    ms and the loop's wait for the VO a frame beside c2f's."""
+    import threading
+
+    config = c2f_config(out_dir, n_frames)
+    config["vo"] = {**config.get("vo", {}), "device": "cpu"}
+    steps = []
+
+    def record(gslam):
+        step = gslam.odometer.step
+
+        def recording(rgb, depth, timestamp):
+            steps.append((threading.current_thread().name, rgb.device.type))
+            return step(rgb, depth, timestamp)
+
+        gslam.odometer.step = recording
+
+    ok, line, report, gslam = _run_slam(config, n_frames, out_dir, "vo_cpu",
+                                        prepare=record)
+    vo = report["vo"]
+    wins = report["tracker"]["init_pose_cnt"].get("odometer", 0)
+    kf_dev = gslam.odometer.keyframes[-1].pyramid.levels[0].pts.device.type
+    la = line["launches"]
+    ok &= (gslam.odometer.on_cpu and vo["pipelined"] == n_frames - 1
+           and {d for _, d in steps} == {"cpu"} and kf_dev == "cpu"
+           and sum(name.startswith("eags-vo") for name, _ in steps)
+           == n_frames - 1
+           and la["fwd_launches"] > 0 and la["bwd_launches"] > 0
+           and la["pose_launches"] > 0 and wins >= 1
+           and line["ate_cm"] < 5.0 and line["psnr_db"] > 19.0
+           and line["ssim"] > 0.55)
+    import torch
+
+    emit({**line, "ok": ok, "odometer_wins": wins,
+          "cpu_threads": torch.get_num_threads(), "cpus": os.cpu_count(),
+          "vo_device": vo["device"], "vo_pipelined": vo["pipelined"],
+          "vo_steps_on_worker": sum(n.startswith("eags-vo")
+                                    for n, _ in steps),
+          "vo_keyframes": vo["n_keyframes"], "vo_ms": vo["mean_track_ms"],
+          "vo_dt_ms": vo["mean_dt_ms"],
+          "vo_wait_ms": _mean_log(out_dir, "tracking", "vo_wait_ms"),
+          "c2f_same_call": None if c2f_line is None else {
+              k: c2f_line[k] for k in ("fps", "track_ms", "map_ms", "vo_ms",
+                                       "vo_wait_ms", "ate_cm", "psnr_db")}})
+    if not ok:
+        raise SystemExit("vo_cpu check failed")
+    return line
+
+
+# The mesh F1 ceiling (python -m eags_slam_torch.mesh_bound) at bench
+# scale: 72 frames, every 5th fused, the evaluator's voxel 5/512, both grid
+# bounds. The reference read F1 0.797 with depth bounds
+# (MESH_BOUND_r05.jsonl line 6, a TPU v5e run).
+MESH_BOUND_REFERENCE_F1 = 0.797
+
+
+def phase_mesh_bound(heavy_line):
+    """The port's mesh_bound entry on the card. Gate: every line has faces
+    and a finite F1, and the depth-bounds F1 at voxel 5/512 lies above the
+    heavy phase's F1 of the same call (a ceiling sits above the reading).
+    Prints F1, precision, recall and wall seconds beside the reference's
+    0.797."""
+    import math
+
+    import torch
+
+    from eags_slam_torch import mesh_bound as mb
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    lines = mb.main(["--frames", str(LC_FRAMES), "--kf_every", "5",
+                     "--voxels", str(5.0 / 512.0)])
+    wall = time.perf_counter() - t0
+    depth = [r for r in lines if r["bounds"] == "depths"]
+    heavy_f1 = None if heavy_line is None else heavy_line["recon"]["f1"]
+    ok = (len(lines) == 2 and len(depth) == 1
+          and all(r["n_faces"] > 0 and math.isfinite(r.get("f1", math.nan))
+                  for r in lines)
+          and (heavy_f1 is None or depth[0]["f1"] > heavy_f1))
+    emit({"phase": "mesh_bound", "ok": ok, "lines": lines,
+          "wall_s": wall, "peak_mem_gb": torch.cuda.max_memory_allocated()
+          / 2**30, "heavy_f1_same_call": heavy_f1,
+          "reference_f1": MESH_BOUND_REFERENCE_F1})
+    if not ok:
+        raise SystemExit("mesh_bound check failed")
+
+
+# AlexNet's trunk as LPIPS reads it: (out, in, kernel) of conv1..conv5.
+ALEX = ((64, 3, 11), (192, 64, 5), (384, 192, 3), (256, 384, 3),
+        (256, 256, 3))
+LPIPS_REL_TOL = 1e-4
+
+
+def _lpips_weights(path: str, seed: int = 0):
+    """A seeded npz with the LPIPS(alex) checkpoint's keys and shapes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z = {}
+    for i, (o, c, k) in enumerate(ALEX, start=1):
+        z[f"conv{i}_w"] = (rng.normal(size=(o, c, k, k))
+                           * np.sqrt(2.0 / (c * k * k))).astype(np.float32)
+        z[f"conv{i}_b"] = rng.normal(0, 0.05, o).astype(np.float32)
+        z[f"lin{i}_w"] = rng.uniform(0, 0.2, (1, o, 1, 1)).astype(np.float32)
+    np.savez(path, **z)
+
+
+def phase_lpips(per_wall: int, n_frames: int, slice_dir: str):
+    """LPIPS(alex) on the card: seeded weights with AlexNet's shapes in a
+    temporary file (the module's path pointed at it; nothing is written
+    into the repo); two 1200x680 images on the card and on the CPU within
+    1e-4 relative (float32 convolutions, TF32 off); ms a call on the card
+    (median of 5); then the evaluator's rendering stage on the slice
+    phase's output directory, whose mean_lpips must be finite."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eags_slam_torch.datasets import get_dataset
+    from eags_slam_torch.evaluation import lpips as L
+    from eags_slam_torch.evaluation.evaluator import Evaluator
+
+    saved = L.WEIGHTS_PATH, L._NETS
+    with tempfile.TemporaryDirectory() as tmp:
+        L.WEIGHTS_PATH = os.path.join(tmp, "lpips_alex.npz")
+        L._NETS = {}
+        try:
+            _lpips_weights(L.WEIGHTS_PATH)
+            rng = np.random.default_rng(1)
+            a = rng.uniform(0, 1, (680, 1200, 3)).astype(np.float32)
+            b = np.clip(a + rng.normal(0, 0.1, a.shape), 0,
+                        1).astype(np.float32)
+            cpu = L.lpips(torch.as_tensor(a), torch.as_tensor(b))
+            ta, tb = (torch.as_tensor(x, device="cuda") for x in (a, b))
+            card = L.lpips(ta, tb)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                L.lpips(ta, tb)
+                times.append(1e3 * (time.perf_counter() - t0))
+            config = bench_config(slice_dir, n_frames, per_wall)
+            ds = get_dataset("synthetic")(config, device="cuda")
+            try:
+                rend = Evaluator(slice_dir, ds, config).run_rendering_eval()
+            finally:
+                ds.close()
+        finally:
+            L.WEIGHTS_PATH, L._NETS = saved
+    rel = abs(card - cpu) / cpu
+    ok = (cpu > 0 and rel <= LPIPS_REL_TOL and rend["mean_lpips"] is not None
+          and math.isfinite(rend["mean_lpips"]) and rend["num_views"] > 0)
+    emit({"phase": "lpips", "ok": ok, "card": card, "cpu": cpu,
+          "rel_err": rel, "tol": LPIPS_REL_TOL, "ms": sorted(times)[2],
+          "image": [1200, 680], "slice_mean_lpips": rend["mean_lpips"],
+          "slice_psnr_db": rend["mean_psnr"], "views": rend["num_views"]})
+    if not ok:
+        raise SystemExit("lpips check failed")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
-                   default="device,build,kernels,slice,window,c2f,mesh,"
-                   "lc,heavy,entries,slice_k4,slice_opts,slice_mapopts,"
-                   "tum,replica")
+                   default="device,build,kernels,slice,lpips,dense,window,"
+                   "c2f,vo_cpu,mesh,lc,heavy,mesh_bound,entries,slice_k4,"
+                   "slice_opts,slice_mapopts,tum,replica")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -2324,6 +2694,13 @@ def main():
     if "slice" in phases:
         slice_line = phase_slice(PER_WALL, N_FRAMES, args.out + "_slice")
         runs.append(slice_line)
+    if "lpips" in phases:
+        if slice_line is None:
+            raise SystemExit("lpips scores the slice phase's run: run both")
+        phase_lpips(PER_WALL, N_FRAMES, args.out + "_slice")
+    if "dense" in phases:
+        runs.append(phase_dense(PER_WALL, DENSE_FRAMES, args.out + "_dense",
+                                slice_line))
     if "window" in phases:
         runs.append(phase_slice(PER_WALL, N_FRAMES, args.out + "_window",
                                 window=True, slice_line=slice_line))
@@ -2331,6 +2708,8 @@ def main():
     if "c2f" in phases:
         c2f_line = phase_c2f(C2F_FRAMES, args.out + "_c2f")
         runs.append(c2f_line)
+    if "vo_cpu" in phases:
+        runs.append(phase_vo_cpu(C2F_FRAMES, args.out + "_vo_cpu", c2f_line))
     if "mesh" in phases:
         runs.append(phase_mesh(C2F_FRAMES, args.out + "_mesh", c2f_line))
     lc_line = None
@@ -2338,6 +2717,7 @@ def main():
         lc_line = phase_lc(LC_FRAMES, args.out + "_lc", c2f_line)
         runs.append(lc_line)
     launches_global = None
+    heavy_line = None
     if "heavy" in phases:
         heavy_line, k12_global = phase_heavy(LC_FRAMES, args.out + "_lc",
                                              lc_line, REPS)
@@ -2345,6 +2725,8 @@ def main():
         launches_global = heavy_line["launches_global"]
         for kid, extra in k12_global.items():
             summary.setdefault(kid, {})["global"] = extra
+    if "mesh_bound" in phases:
+        phase_mesh_bound(heavy_line)
     if "entries" in phases:
         runs.append(phase_entries(PER_WALL, N_FRAMES, args.out + "_entries",
                                   slice_line))

@@ -7,7 +7,10 @@ compositing kernel is hand-written CUDA C++ for Hopper (`csrc/`), each with
 a plain PyTorch twin in `ops/` that the CPU takes. `parallel/` runs the
 mapping and tracking over a mesh of ranks (`torch.distributed`, one process
 a card). `python -m eags_slam_torch.bench` runs bench.py's protocol on the
-card.
+card, `python -m eags_slam_torch.mesh_bound` the mesh F1 ceiling. Every
+module of the JAX package has its counterpart here, the dense `jnp`
+compositor, LPIPS, the native frame loader and the CPU-pinned VO among
+them.
 
 Nothing in this package imports JAX.
 """

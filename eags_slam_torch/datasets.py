@@ -6,14 +6,18 @@
     and depth on the dataset's device), `frame_u8(idx)` (the uncropped uint8
     colour and float32 depth on the device, the VO's input) and
     `dataset[idx]` (the cropped host frame, as the JAX package returns it).
-  - `FileDataset`: the readers' base. Frames are decoded on the host by
-    `utils/image_io.py` (PNG and TIFF with zlib and numpy, JPEG through
-    Pillow), colour undistorted with `cam.distortion` (the 5-coefficient
-    OpenCV model, maps built on first use), and read ahead by a preloader
-    thread (`start_prefetch`: `data.prefetch` frames ahead, at most twice
-    that held; an evicted frame is decoded again on request, from any
-    thread). Uploads go through pinned memory, non-blocking, on the
-    caller's current CUDA stream.
+  - `FileDataset`: the readers' base. `start_prefetch` reads ahead with
+    the native decode pool (`utils/native_loader.py`: JPEG / PNG colour and
+    16-bit PNG depth decoded by C++ threads, outside the GIL) when its
+    library loads, the files are its formats and the reader keeps the
+    base `_load_raw`; else with a preloader thread whose frames
+    `utils/image_io.py` decodes (PNG and TIFF with zlib and numpy, JPEG
+    through Pillow; `data.prefetch` frames ahead, at most twice that held;
+    an evicted frame is decoded again on request, from any thread). Colour
+    is undistorted with `cam.distortion` (the 5-coefficient OpenCV model,
+    maps built on first use) on either path, after the native pool's
+    decode. `report()["reader"]` says which ran. Uploads go through pinned
+    memory, non-blocking, on the caller's current CUDA stream.
   - The readers: `Replica`, `TUM_RGBD`, `ScanNet`, `ScanNetPP` (its resize
     to 640 x 480 uses Pillow, as the JAX package's does).
   - `Synthetic`: the procedural gaussian-splat room with exact GT poses: the
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from .core.camera import Camera
+from .utils import native_loader
 from .utils.image_io import pillow_image, read_image
 
 # The host frames' dtypes (colour, depth) as torch dtypes.
@@ -197,6 +202,11 @@ class BaseDataset:
         rgb8, depth = self._frames[idx]
         return rgb8, depth.to(torch.float32)
 
+    def frame_u8_host(self, idx: int):
+        """`frame_u8` on the host CPU (the input of a VO pinned there)."""
+        rgb8, depth = self._frames[idx]
+        return rgb8.cpu(), depth.to(torch.float32).cpu()
+
     def __getitem__(self, idx: int):
         color, depth = self.frame(idx)
         return (idx, color.cpu().numpy(), depth.cpu().numpy(),
@@ -239,6 +249,9 @@ class FileDataset(BaseDataset):
         self._error: Optional[BaseException] = None   # what stopped it
         self._decode_s = 0.0
         self._decoded = 0
+        self._native = None      # the native decode pool (start_prefetch)
+        self._native_status: Optional[Dict] = None   # its library's, if tried
+        self._reader = "python"  # the reader start_prefetch chose
 
     def __len__(self) -> int:
         n = len(self.color_paths) if self.color_paths else len(self.poses)
@@ -273,8 +286,21 @@ class FileDataset(BaseDataset):
 
     # -- the preloader ------------------------------------------------------
     def start_prefetch(self):
-        if self._thread is not None or len(self) == 0:
+        if self._thread is not None or self._native is not None \
+                or len(self) == 0:
             return
+        # The native pool decodes the raw files; a reader with its own
+        # _load_raw (ScanNet++'s resize) keeps the Python path.
+        colors, depths = self.color_paths[: len(self)], \
+            self.depth_paths[: len(self)]
+        if (type(self)._load_raw is FileDataset._load_raw
+                and native_loader.supported(colors, depths)):
+            self._native = native_loader.try_create(
+                colors, depths, self.depth_scale, self._prefetch_ahead)
+            self._native_status = native_loader.status()
+            if self._native is not None:
+                self._reader = "native"
+                return
 
         def worker():
             for i in range(len(self)):
@@ -307,9 +333,20 @@ class FileDataset(BaseDataset):
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        if self._native is not None:
+            self._native.close()
+            self._native = None
         self._cache.clear()
 
     def _get_frame(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        native = self._native
+        if native is not None:
+            try:
+                rgb, depth = native.get(idx)
+            except RuntimeError as e:
+                raise RuntimeError(f"{e}: {self.color_paths[idx]}, "
+                                   f"{self.depth_paths[idx]}") from e
+            return self._undistort_color(rgb), depth
         if self._thread is None:
             return self._decode(idx)
         with self._cv:
@@ -356,6 +393,11 @@ class FileDataset(BaseDataset):
         rgb, depth = self._get_frame(idx)
         return self._upload(rgb), self._upload(depth)
 
+    def frame_u8_host(self, idx: int):
+        rgb, depth = self._get_frame(idx)
+        return torch.from_numpy(np.array(rgb)), torch.from_numpy(
+            np.array(depth))
+
     def get_origin_image(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
         """The uncropped host frame: (rgb uint8 (H, W, 3), depth f32)."""
         return self._get_frame(idx)
@@ -368,11 +410,18 @@ class FileDataset(BaseDataset):
         return idx, color, self._crop(depth).astype(np.float32), pose
 
     def report(self) -> Dict:
-        """The decode time a frame (host clock, every decode in any
-        thread) and the number of decodes."""
+        """The reader that ran ("native" or "python"), the number of Python
+        decodes and their mean time (host clock, any thread; null under the
+        native pool, which decodes off the Python threads), and the native
+        library's status (`native_loader.status()`) when the pool was tried,
+        else null."""
         with self._cv:
             n, s = self._decoded, self._decode_s
-        return {"decoded": n, "decode_ms_avg": 1e3 * s / n if n else 0.0}
+        native = self._reader == "native"
+        return {"reader": self._reader, "decoded": n,
+                "decode_ms_avg": None if native else
+                (1e3 * s / n if n else 0.0),
+                "native": self._native_status}
 
 
 class Replica(FileDataset):

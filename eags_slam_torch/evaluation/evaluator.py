@@ -5,7 +5,8 @@ Loads `estimated_c2w.npz` and `submaps/*.npz` and restores each submap into
 the world frame along the `T_prev_m` chain. Stages:
   - trajectory: ATE / RPE into `ate.json`;
   - rendering: each submap's keyframes rendered at their estimated poses,
-    exposure-compensated: PSNR / SSIM / MS-SSIM / depth-L1 into
+    exposure-compensated: PSNR / SSIM / MS-SSIM / depth-L1, and LPIPS(alex)
+    when `weights/lpips_alex.npz` exists (`evaluation/lpips.py`), into
     `rendering_metrics.json`; with `evaluation.save_render` also each
     keyframe's clipped render as `eval_render/<frame>.png`;
   - reconstruction (`evaluation.eval_mesh`): the keyframe renders fused into
@@ -24,7 +25,7 @@ the world frame along the `T_prev_m` chain. Stages:
 Both heavy stages also report their stage times (`stage_s`, host clock
 around work that ends in a device sync). Every stage runs on the dataset's
 device. LPIPS needs pretrained weights the repo does not ship, as in the
-JAX package.
+JAX package: without them `mean_lpips` is null.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from ..ops.tsdf import grid_bounds_from_depths, integrate, make_grid
 from ..slam.submap import Submap
 from ..utils.image_io import write_png
 from ..utils.ply import save_gaussian_ply
+from .lpips import lpips
 from .merged_map import merge_submaps, refine_global_map
 from .mesh import (clean_mesh, load_ply, mesh_metrics, sample_surface,
                    save_ply, surface_nets, unseen_depth_l1)
@@ -86,7 +88,7 @@ class Evaluator:
     @torch.no_grad()
     def run_rendering_eval(self) -> Dict:
         dev = self.dataset.device
-        psnrs, ssims, ms_ssims, depth_l1s = [], [], [], []
+        psnrs, ssims, ms_ssims, depth_l1s, lpipss = [], [], [], [], []
         save_render = bool(self.config.get("evaluation", {}).get(
             "save_render", False))
         render_dir = os.path.join(self.output_path, "eval_render")
@@ -111,6 +113,9 @@ class Evaluator:
                 ssims.append(float(ssim(img, gt_color)))
                 if min(img.shape[0], img.shape[1]) > 160:
                     ms_ssims.append(float(ms_ssim(img, gt_color)))
+                lp = lpips(img, gt_color)
+                if lp is not None:
+                    lpipss.append(lp)
                 mask = gt_depth > 0
                 dl1 = torch.abs(out.depth - gt_depth)[mask]
                 depth_l1s.append(float(dl1.mean()) if dl1.numel() else 0.0)
@@ -122,7 +127,7 @@ class Evaluator:
             "mean_ssim": float(np.mean(ssims)) if ssims else 0.0,
             "mean_ms_ssim": float(np.mean(ms_ssims)) if ms_ssims else None,
             "mean_depth_l1": float(np.mean(depth_l1s)) if depth_l1s else 0.0,
-            "mean_lpips": None,
+            "mean_lpips": float(np.mean(lpipss)) if lpipss else None,
             "num_views": len(psnrs),
         }
         with open(os.path.join(self.output_path, "rendering_metrics.json"),

@@ -1,6 +1,6 @@
 """Differentiable tile-binned 3D Gaussian splat rasterizer (port of
-eags_slam_tpu.ops.rasterizer): the `sorted` backend and the entry-binned
-`pallas` backend.
+eags_slam_tpu.ops.rasterizer): the `sorted` backend, the entry-binned
+`pallas` backend and the dense `jnp` backend.
 
 Pipeline of the sorted backend:
   1. EWA projection (`project_gaussians`): 3D covariance R S S^T R^T to a 2D
@@ -21,6 +21,16 @@ per-tile segments (`_build_slots`), gathered attr-major (`_gather_entries`)
 and composited by `ops.composite_entries`. Its tracking path freezes the
 binning at the init pose (`freeze_binning`, `render_frozen`).
 
+The `jnp` backend (named after the JAX package's plain-XLA compositor; it
+has no kernel there either) bins as `pallas` does into a fixed-capacity
+tile table (`_build_tile_table`: the first `tile_capacity` entries of each
+tile in depth order, sentinel index N in the empty slots) and composites
+it in plain PyTorch (`_composite_dense`): every tile at once, `chunk`
+gaussians a step, log-space transmittance, each step under
+`torch.utils.checkpoint` so that the backward keeps one chunk's
+intermediates at a time. It runs only when a config asks for it; `auto`
+is the sorted backend on every device.
+
 The frozen-sorted tracking render also has a pose-contraction backward
 (`render_frozen_sorted(_tiles)_pose`): the gradient w.r.t. the 7 relative
 pose parameters comes from K4, which contracts the replay's per-entry
@@ -31,15 +41,13 @@ Gradients reach every array input (means, quats, scales, opacity, colours
 and the pose) through PyTorch autograd; the column gather of `_sorted_attrs`
 is plain indexing, whose backward is a scatter-add.
 
-`RasterConfig` keeps the JAX fields the ported paths read, plus the
-selector of the unported dense backend, for which `check_config` raises.
 `kernel_quadform` and `kernel_bf16` pick the variant of K1-K4 on every
 sorted path (render, tiles, resident, frozen and its K4 backward;
 `ops.composite_sorted`); the `pallas` backend's K5 / K6 have no such
-variants, as in the JAX package. The
-dense-only fields (`tile_capacity`, `chunk`: the v1 kernels use 128) and
-`alpha_max` (the kernels clip alpha at the fixed `ALPHA_MAX`) are left out.
-`group` bounds the run of tiles a K3 cluster replays (`window_run`).
+variants, as in the JAX package. `tile_capacity`, `chunk` and `alpha_max`
+configure the `jnp` backend only (the kernels clip alpha at the fixed
+`ALPHA_MAX` and take 128-entry chunks). `group` bounds the run of tiles a
+K3 cluster replays (`window_run`).
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import os
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.camera import Camera
 from .composite_entries import composite_entries
@@ -57,12 +66,15 @@ from .composite_sorted import (NCH, P_MAX, PJ, composite_sorted,
 
 class RasterConfig(NamedTuple):
     tile: int = 16            # square tile side in pixels
-    dup_side: int = 4         # pallas: a gaussian covers <= dup_side^2 tiles
+    dup_side: int = 4         # pallas / jnp: <= dup_side^2 tiles a gaussian
+    tile_capacity: int = 1024  # jnp: gaussians composited per tile at most
+    chunk: int = 64           # jnp: gaussians per compositing step
     near: float = 0.2         # z culling plane
     alpha_min: float = 1.0 / 255.0
+    alpha_max: float = 0.99   # jnp: alpha clip (the kernels' ALPHA_MAX)
     sigma_clip: float = 3.0   # radius = sigma_clip * sqrt(lambda_max)
     low_pass: float = 0.3     # 2D covariance dilation (3DGS convention)
-    backend: str = "sorted"   # sorted | pallas (auto == sorted); jnp raises
+    backend: str = "sorted"   # sorted | pallas | jnp (auto == sorted)
     max_per_tile: int = 8192  # pallas: entries composited per tile at most
     group: int = 16           # sorted with rmw_window: tiles per K3 block
     entry_cap_factor: int = 4  # pallas: total entry budget = factor * N
@@ -105,13 +117,14 @@ def backend_of(cfg: RasterConfig) -> str:
     return "sorted" if cfg.backend == "auto" else cfg.backend
 
 
+BACKENDS = ("sorted", "pallas", "jnp")
+
+
 def check_config(cfg: RasterConfig) -> None:
-    """Raise for the configuration branches this port does not have yet."""
-    if backend_of(cfg) not in ("sorted", "pallas"):
-        raise NotImplementedError(
-            f"RasterConfig.backend={cfg.backend!r}: the dense 'jnp' "
-            "compositor is not ported (ROADMAP Queue 1 item 13; not on the "
-            "port's path)")
+    """Raise for a backend name that is none of BACKENDS (or `auto`)."""
+    if backend_of(cfg) not in BACKENDS:
+        raise ValueError(f"RasterConfig.backend={cfg.backend!r}: not one of "
+                         f"{BACKENDS + ('auto',)}")
 
 
 class RenderOutput(NamedTuple):
@@ -329,6 +342,16 @@ def render(means3d, quats, log_scales, opacity_logits, colors, w2c,
     """Render gaussians into (color, depth, alpha, radii); differentiable
     w.r.t. every array input including `w2c`."""
     check_config(cfg)
+    if backend_of(cfg) == "jnp":
+        proj = project_gaussians(means3d, quats, log_scales, opacity_logits,
+                                 w2c, cam, cfg, alive)
+        table, count = _build_tile_table(proj, cam, cfg)
+        color, depth, alpha = _composite_dense(table, count, proj, colors,
+                                               cam, cfg)
+        return RenderOutput(color[: cam.height, : cam.width],
+                            depth[: cam.height, : cam.width],
+                            alpha[: cam.height, : cam.width],
+                            torch.ceil(proj.radius.detach()).to(torch.int32))
     if backend_of(cfg) == "pallas":
         proj = project_gaussians(means3d, quats, log_scales, opacity_logits,
                                  w2c, cam, cfg, alive)
@@ -646,6 +669,103 @@ def _composite_pallas(proj: _Projected, colors, cam: Camera,
     entries = _gather_entries(_with_sentinel(_stack_attrs(proj, colors)),
                               slot_gid)
     return composite_entries(entries, pstart, count, cfg.tile, tiles_x)
+
+
+# ---------------------------------------------------------------------------
+# Dense backend (`jnp`: plain PyTorch, no kernel)
+# ---------------------------------------------------------------------------
+
+
+def _build_tile_table(proj: _Projected, cam: Camera, cfg: RasterConfig):
+    """The entry binning as a fixed-capacity table: (table (T, C) int64,
+    each tile's gaussians in depth order, N in the empty slots; count (T,)
+    int64, at most C = tile_capacity). A tile's entries past C are its
+    deepest and are dropped."""
+    n = proj.mean2d.shape[0]
+    tiles_x, tiles_y = _tiles(cam, cfg)
+    num_tiles = tiles_x * tiles_y
+    cap = cfg.tile_capacity
+    s_tile, s_gauss, start, count = _bin_entries(proj, cam, cfg)
+    with torch.no_grad():
+        pos = (torch.arange(s_tile.shape[0], device=s_tile.device)
+               - start[torch.clamp(s_tile, 0, num_tiles - 1)])
+        ok = (s_tile < num_tiles) & (pos < cap)
+        table = torch.full((num_tiles + 1, cap), n, dtype=torch.long,
+                           device=s_tile.device)
+        table[torch.where(ok, s_tile, num_tiles),
+              torch.where(ok, pos, 0)] = torch.where(ok, s_gauss, n)
+    return table[:num_tiles], torch.clamp(count, max=cap)
+
+
+def _dense_chunk(log_t, acc, idx, in_slot, pu, pv, mean2d_p, conic_p,
+                 opac_p, feat_p, alpha_min: float, alpha_max: float):
+    """One front-to-back step over every tile: the chunk's gaussians `idx`
+    (T, K) against the tiles' pixels (T, P). Returns (log T, acc)."""
+    m2 = mean2d_p[idx]                                  # (T, K, 2)
+    co = conic_p[idx]                                   # (T, K, 3)
+    du = pu[:, None, :] - m2[..., 0:1]                  # (T, K, P)
+    dv = pv[:, None, :] - m2[..., 1:2]
+    power = (-0.5 * (co[..., 0:1] * du * du + co[..., 2:3] * dv * dv)
+             - co[..., 1:2] * du * dv)
+    g = torch.exp(torch.clamp(power, max=0.0))
+    alpha = torch.where((power <= 0.0) & in_slot[..., None],
+                        opac_p[idx][..., None] * g, torch.zeros_like(g))
+    alpha = torch.clamp(alpha, max=alpha_max)
+    alpha = torch.where(alpha < alpha_min, torch.zeros_like(alpha), alpha)
+    log1m = torch.log1p(-alpha)
+    cum = torch.cumsum(log1m, dim=1)
+    w = alpha * torch.exp(cum - log1m + log_t[:, None, :])
+    acc = acc + torch.einsum("tkp,tkf->tpf", w, feat_p[idx])
+    return log_t + cum[:, -1], acc
+
+
+def _composite_dense(table, count, proj: _Projected, colors, cam: Camera,
+                     cfg: RasterConfig):
+    """Front-to-back alpha compositing over the tile table, all tiles at
+    once, `chunk` slots a step. Returns the padded (Hp, Wp) images: colour
+    (.., 3), depth, alpha. Steps past the fullest tile's count composite
+    nothing and are skipped (one host read of the largest count)."""
+    n = proj.mean2d.shape[0]
+    tiles_x, tiles_y = _tiles(cam, cfg)
+    num_tiles = tiles_x * tiles_y
+    ts = cfg.tile
+    dev = proj.mean2d.device
+
+    def pad(x, fill=0.0):
+        return torch.cat([x, torch.full((1,) + tuple(x.shape[1:]), fill,
+                                        dtype=x.dtype, device=dev)], 0)
+
+    mean2d_p = pad(proj.mean2d, -1e6)
+    conic_p = pad(proj.conic)
+    opac_p = pad(proj.opacity)
+    feat_p = pad(torch.cat([colors, proj.depth[:, None],
+                            torch.ones((n, 1), dtype=colors.dtype,
+                                       device=dev)], -1))  # rgb, depth, 1
+    tid = torch.arange(num_tiles, device=dev)
+    lu = torch.arange(ts, dtype=torch.float32, device=dev)
+    local_v, local_u = torch.meshgrid(lu, lu, indexing="ij")
+    pu = ((tid % tiles_x) * ts).to(torch.float32)[:, None] \
+        + local_u.reshape(-1)[None]                     # (T, P)
+    pv = ((tid // tiles_x) * ts).to(torch.float32)[:, None] \
+        + local_v.reshape(-1)[None]
+    log_t = torch.zeros(pu.shape, dtype=torch.float32, device=dev)
+    acc = torch.zeros(pu.shape + (5,), dtype=torch.float32, device=dev)
+    k = cfg.chunk
+    n_steps = min(-(-int(count.max()) // k) if num_tiles else 0,
+                  cfg.tile_capacity // k)
+    slot = torch.arange(k, device=dev)
+    for ci in range(n_steps):
+        args = (log_t, acc, table[:, ci * k:(ci + 1) * k],
+                (slot + ci * k)[None, :] < count[:, None], pu, pv, mean2d_p,
+                conic_p, opac_p, feat_p, cfg.alpha_min, cfg.alpha_max)
+        if torch.is_grad_enabled():
+            log_t, acc = torch.utils.checkpoint.checkpoint(
+                _dense_chunk, *args, use_reentrant=False)
+        else:
+            log_t, acc = _dense_chunk(*args)
+    img = acc.reshape(tiles_y, tiles_x, ts, ts, 5).permute(0, 2, 1, 3, 4) \
+        .reshape(tiles_y * ts, tiles_x * ts, 5)
+    return img[..., :3], img[..., 3], img[..., 4]
 
 
 class FrozenBinning(NamedTuple):

@@ -11,11 +11,19 @@ frames or past the motion thresholds) saves the submap and starts a new one
 boundary frame is mapped (seed rows, insert, optimise), seeded from the
 VO's edge map when there is one, else from Canny edges.
 
-The VO steps every frame on the SLAM device, in this thread. Decoupled mode
-(`vo.decoupled`, the default) composes the VO's own relative motion onto
-the SLAM chain, slam(f-1) @ inv(vo(f-1)) @ vo(f), from frame 3 on; coupled
-mode injects each tracked pose into the VO (`set_pose`). Frames wider than
-800 px run the VO at half resolution unless `vo.downscale_levels` is set.
+The VO steps every frame. By default it runs on the SLAM device, in this
+thread; with `vo.device: cpu` it runs on the host CPU on a one-worker pool,
+pipelined one frame ahead (`_submit_vo_next`): frame f+1's step is
+submitted with host inputs (`_vo_host_inputs`) as soon as the VO state it
+needs exists, and runs beside frame f's tracking and mapping; the loop
+waits for it at frame f+1 (`vo_wait_ms` in the tracking log). Decoupled
+mode (`vo.decoupled`, the default) composes the VO's own relative motion
+onto the SLAM chain, slam(f-1) @ inv(vo(f-1)) @ vo(f), from frame 3 on, so
+step(f+1) is submitted before frame f's tracking; coupled mode injects
+each tracked pose into the VO (`set_pose`), so step(f+1) is submitted
+after it. Either way the VO sees the inputs and the pose chain of the
+inline run. Frames wider than 800 px run the VO at half resolution unless
+`vo.downscale_levels` is set.
 
 Frames come from the config's dataset (`datasets.py`): a file-backed
 reader decodes ahead on its preloader thread, started here and stopped by
@@ -27,7 +35,9 @@ way before it seeds.
 The rasterizer runs the sorted backend unless `EAGS_RCFG` (comma-separated
 RasterConfig overrides, e.g. `backend=pallas`) says otherwise; the
 `pallas` backend tracks on a frozen entry binning and maps with the plain
-(non-resident) loop. `mapping.rmw_window` or `EAGS_RMW_WINDOW=1` routes the
+(non-resident) loop, the dense `jnp` backend renders the whole map at
+every tracking and mapping iteration (plain PyTorch, `mapping.tile_capacity`
+gaussians a tile). `mapping.rmw_window` or `EAGS_RMW_WINDOW=1` routes the
 sorted backward through K3.
 
 With `lc.enabled`, each saved submap (and, with `lc.final`, the last one)
@@ -67,9 +77,6 @@ The run-level environment overrides of the JAX package apply, env over
 config: `EAGS_INIT_HALFRES`, `EAGS_INIT_WARM` and `EAGS_MAP_STALE` in the
 MapperConfig, `EAGS_STALE_BEST` and `EAGS_POSE_KERNEL` in the
 TrackerConfig, and `EAGS_SP_TRACK`.
-
-Not ported yet, each raising NotImplementedError when a config selects it:
-the dense `jnp` backend and a VO pinned to another device (`vo.device`).
 """
 from __future__ import annotations
 
@@ -90,7 +97,6 @@ from ..datasets import get_dataset
 from ..parallel import mesh as P
 from ..ops.rasterizer import RasterConfig, apply_rcfg_env, check_config
 from ..vo.system import EdgeVO, VOConfig
-from ..vo.system import check_config as vo_check_config
 from . import mapper as M
 from . import tracker as TT
 from .logger import Logger
@@ -114,10 +120,11 @@ def raster_config(config: Dict, device: torch.device) -> RasterConfig:
     """The run's RasterConfig (EAGS_RCFG and EAGS_RMW_WINDOW applied)."""
     mc = config["mapping"]
     on_gpu = device.type == "cuda"
-    # `tile_capacity` configures the dense backend, which is not ported.
     return apply_rcfg_env(RasterConfig(
         tile=int(mc.get("raster_tile", 32 if on_gpu else 16)),
         dup_side=int(mc.get("dup_side", 3 if on_gpu else 4)),
+        tile_capacity=int(mc.get("tile_capacity", 1024)),
+        chunk=64,
         group=int(mc.get("raster_group", 8)),
         entry_cap_factor=int(mc.get("entry_cap_factor", 4)),
         seg_cap=int(mc.get("seg_cap", 1024)),
@@ -200,13 +207,12 @@ def sp_track_enabled(config: Dict) -> bool:
 
 
 def check_run_config(config: Dict) -> None:
-    """Every guard of a run's config, before anything is built: the
-    branches that are not ported raise NotImplementedError, an unknown
-    dataset name raises KeyError."""
+    """Every guard of a run's config, before anything is built: an unknown
+    dataset name raises KeyError, an unknown rasterizer backend
+    ValueError."""
     get_dataset(config["data"]["dataset_name"])
     check_config(raster_config(config, torch.device(
         config.get("device", "cuda"))))
-    vo_check_config(VOConfig.from_dict(config.get("vo", {})))
 
 
 class GaussianSLAM:
@@ -275,6 +281,16 @@ class GaussianSLAM:
                 vo_cfg["downscale_levels"] = 1
             self.odometer = EdgeVO(VOConfig.from_dict(vo_cfg),
                                    self.dataset.full_camera)
+        # A VO on the host CPU steps on this one worker, a frame ahead:
+        # (frame_id, future) of the step in flight.
+        self._vo_pool = None
+        self._vo_next = None
+        self._vo_pipelined = 0      # steps taken from the worker
+        if self.odometer is not None and self.odometer.on_cpu:
+            import concurrent.futures
+
+            self._vo_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="eags-vo")
 
         self.loop_closer = None
         self._lc_ranges_applied = 0
@@ -473,12 +489,43 @@ class GaussianSLAM:
             e = e[c:-c, c:-c]
         if tuple(e.shape) != (self.cam.height, self.cam.width):
             return None
-        return e
+        return e.to(self.device)
+
+    def _vo_inputs(self, frame_id: int):
+        """The VO's frame: the uncropped uint8 colour and depth, on the
+        SLAM device, or on the host for a VO pinned to the CPU."""
+        if self.odometer.on_cpu:
+            return self._vo_host_inputs(frame_id)
+        return self.dataset.frame_u8(frame_id)
+
+    def _vo_host_inputs(self, frame_id: int):
+        """The VO's frame on the host CPU (read in this thread, so the
+        worker never touches the SLAM device)."""
+        return self.dataset.frame_u8_host(frame_id)
 
     def _vo_step(self, frame_id: int) -> np.ndarray:
-        rgb8, depth = self.dataset.frame_u8(frame_id)
+        """Frame `frame_id`'s VO pose: the pipelined step's result when one
+        is in flight for it, else a step run here."""
+        pending, self._vo_next = self._vo_next, None
+        if pending is not None and pending[0] == frame_id:
+            self._vo_pipelined += 1
+            return pending[1].result()
+        rgb8, depth = self._vo_inputs(frame_id)
         return self.odometer.step(rgb8, depth,
                                   self.dataset.timestamps[frame_id])
+
+    def _submit_vo_next(self, frame_id: int, n: int):
+        """Submit frame_id + 1's VO step to the worker (a VO on the CPU
+        only). Call it once the VO's state for that step is final: after
+        frame_id's step (decoupled), or after its set_pose (coupled, and
+        frames 0 and 1); the loop mutates no VO state until it has
+        waited for the step."""
+        if self._vo_pool is None or frame_id + 1 >= n:
+            return
+        nxt = frame_id + 1
+        rgb8, depth = self._vo_host_inputs(nxt)
+        self._vo_next = (nxt, self._vo_pool.submit(
+            self.odometer.step, rgb8, depth, self.dataset.timestamps[nxt]))
 
     def map_frame(self, frame_id: int, gt_color, gt_depth,
                   is_new_submap: bool):
@@ -622,21 +669,28 @@ class GaussianSLAM:
                     self._vo_step(frame_id)
                     self.odometer.set_pose(frame_id, gt_pose)
                     self._vo_last = gt_pose
+                    self._submit_vo_next(frame_id, n)
             else:
                 p1 = self.estimated_c2ws[frame_id - 1]
                 p2 = self.estimated_c2ws[frame_id - 2]
                 candidates = {"const_speed": p1 @ np.linalg.inv(p2) @ p1,
                               "previous": p1}
-                vo_ms = None
+                vo_ms = vo_wait_ms = None
                 if self.odometer is not None:
+                    # Inline: the whole step; pipelined: the wait for it.
                     t_vo = time.perf_counter()
                     vo_c2w = self._vo_step(frame_id)
-                    vo_ms = 1e3 * (time.perf_counter() - t_vo)
+                    vo_wait_ms = 1e3 * (time.perf_counter() - t_vo)
+                    # The step's own time, read before step(f+1) starts.
+                    vo_ms = 1e3 * self.odometer.track_times[-1]
                     if self._vo_decoupled:
                         if frame_id >= 3 and self._vo_last is not None:
                             candidates["odometer"] = (
                                 p1 @ np.linalg.inv(self._vo_last) @ vo_c2w)
                         self._vo_last = vo_c2w
+                        # The VO runs on its own chain: step(f+1) overlaps
+                        # this frame's tracking and mapping.
+                        self._submit_vo_next(frame_id, n)
                     elif frame_id >= 3:
                         candidates["odometer"] = vo_c2w
                 c2w, exposure, stats = self.tracker.track(
@@ -649,8 +703,10 @@ class GaussianSLAM:
                 self.exposures_ab[frame_id] = np.asarray(exposure)
                 if self.odometer is not None and not self._vo_decoupled:
                     self.odometer.set_pose(frame_id, c2w)
+                    self._submit_vo_next(frame_id, n)
                 if vo_ms is not None:
                     stats["vo_ms"] = vo_ms
+                    stats["vo_wait_ms"] = vo_wait_ms
                 stats["data_wait_ms"] = 1e3 * data_wait
                 self.logger.log_tracking(
                     frame_id, {k: float(v) for k, v in stats.items()})
@@ -734,7 +790,9 @@ class GaussianSLAM:
                               "replicated": same,
                               "collectives": P.collective_counts()}
         if self.odometer is not None:
-            report["vo"] = self.odometer.report()
+            report["vo"] = {**self.odometer.report(),
+                            "device": self.odometer.cfg.device,
+                            "pipelined": self._vo_pipelined}
             if self.is_main:
                 self.odometer.dump_tum(
                     os.path.join(self.output_path, "vo_traj_tum.txt"),
@@ -746,6 +804,8 @@ class GaussianSLAM:
         return report
 
     def cleanup(self):
+        if self._vo_pool is not None:
+            self._vo_pool.shutdown(wait=True, cancel_futures=True)
         if self.loop_closer is not None:
             self.loop_closer.shutdown()
         self.dataset.close()

@@ -15,7 +15,7 @@ Differences in form from the JAX version, none in the arithmetic:
 Both optimisation loops are ported: the resident-sorted one (sorted
 backend, `kf_block > 0`) and the plain one that renders every iteration
 from the canonical row order with a keyframe drawn per iteration (the
-`pallas` backend, or `kf_block <= 0`). With `tile_subset > 0` on the
+`pallas` and `jnp` backends, or `kf_block <= 0`). With `tile_subset > 0` on the
 sorted backend each iteration of the plain loop optimises a random subset
 of min(tile_subset, tiles) tiles (`render_tiles` against `gt_tiles`, the
 SSIM per tile), and the bookkeeping compares a loss EMA (beta 0.8): the

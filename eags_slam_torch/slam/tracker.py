@@ -11,9 +11,11 @@ top-scoring tile subset with a wider polish phase at the end (off under
 `pose_grad_kernel` its pose gradient comes from the pose-contraction
 backward (K4) instead of the K2 grads and autograd through the
 reprojection. On the `pallas` backend it renders a frozen entry binning
-(`freeze_binning`, K5 / K6) on the full image. The JAX `lax.while_loop` is
-a Python loop here; its carry is plain Python/numpy scalars plus the pose
-tensors. With a mesh and `sp_track`, `Tracker` scores the candidates apart
+(`freeze_binning`, K5 / K6) on the full image. On the `jnp` backend it
+renders the whole map every iteration (no frozen layout, no subset). The
+JAX `lax.while_loop` is a Python loop here; its carry is plain
+Python/numpy scalars plus the pose tensors. With a mesh and `sp_track`,
+`Tracker` scores the candidates apart
 (`eval_init_candidates`) and refines over the mesh's split tile grid
 (parallel/mesh.py `sp_track_refine`: the full grid, no subset, no polish,
 no K4).
@@ -137,9 +139,10 @@ def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
                   tcfg: TrackerConfig, subset=None):
     """Refinement loss over the frozen layout of the backend: the
     centre-sorted one (tile subset when `subset` = (tile_ids, gt_c_tiles,
-    gt_d_tiles, in_img) is given) or the entry binning."""
+    gt_d_tiles, in_img) is given) or the entry binning; the full render
+    every iteration with `frozen_binning` off or on the `jnp` backend."""
     w = tcfg.w_color_loss
-    if not tcfg.frozen_binning:
+    if not tcfg.frozen_binning or backend_of(rcfg) == "jnp":
         def loss_full(pose):
             out = render(params.xyz, params.quats, params.log_scales,
                          params.opacity_logits, colors,

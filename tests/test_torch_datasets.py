@@ -11,6 +11,10 @@ the CPU equal its host frames exactly. The preloader: out-of-order reads,
 an evicted frame read again from a second thread, close() while it
 runs, and a frame the preloader cannot decode (JPEG without Pillow, a
 palette PNG) raising to the reader, naming the file, within a time limit.
+These tests hold the Python preloader: the native decode pool, which
+`start_prefetch` takes first for these formats where its library loads,
+is kept out of them (`python_preloader`) and tested in
+tests/test_torch_native_loader.py.
 """
 import json
 import pathlib
@@ -30,6 +34,14 @@ from eags_slam_torch.utils.layouts import (write_replica, write_scannet,
                                            write_tum)
 
 H, W = 48, 64
+
+
+@pytest.fixture(autouse=True)
+def python_preloader(monkeypatch):
+    """start_prefetch finds no native pool: the Python preloader runs."""
+    from eags_slam_torch.utils import native_loader
+
+    monkeypatch.setattr(native_loader, "try_create", lambda *a, **k: None)
 FR1_DIST = np.array([0.262383, -0.953104, -0.005358, 0.002628, 1.163314])
 
 
@@ -333,6 +345,8 @@ class _NoPil(importlib.abc.MetaPathFinder):
             raise ImportError("Pillow hidden")
 sys.meta_path.insert(0, _NoPil())
 from eags_slam_torch import datasets as T
+from eags_slam_torch.utils import native_loader
+native_loader.try_create = lambda *a, **k: None   # the Python preloader
 ds = T.Replica(json.loads(sys.argv[1]))
 ds.start_prefetch()
 try:

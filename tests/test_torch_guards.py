@@ -1,11 +1,11 @@
 """Guards of the PyTorch port: it never imports JAX or the JAX package, it
 refuses a CUDA request without CUDA (no silent fallback to the CPU), every
-branch that is not ported raises NotImplementedError while the ported
-rasterizer options render, and chip_smoke.py refuses to run without a
-card. The runs of the ported config branches, the CLI and the evaluation
-options are in tests/test_torch_config_branches.py,
-test_torch_config_options.py, test_torch_cli.py and test_torch_eval_runs.py
-(which take `_tiny` and `_CHEAP` from here)."""
+rasterizer option renders (the dense `jnp` backend among them) and every
+`vo.device` builds, and chip_smoke.py refuses to run without a card. The
+runs of the ported config branches, the CLI and the evaluation options are
+in tests/test_torch_config_branches.py, test_torch_config_options.py,
+test_torch_cli.py and test_torch_eval_runs.py (which take `_tiny` and
+`_CHEAP` from here)."""
 import ast
 import os
 import pathlib
@@ -116,21 +116,23 @@ def test_kernel_wrappers_raise_without_cuda():
     assert len(cs.counts()) == 8 and len(ce.counts()) == 4
 
 
-@pytest.mark.parametrize("field,value", [("backend", "jnp")])
-def test_unported_raster_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.check_config(TR.RasterConfig(**{field: value}))
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError, match="not one of"):
+        TR.check_config(TR.RasterConfig(backend="dense"))
 
 
 @pytest.mark.parametrize("field,value", [
     ("backend", "pallas"), ("rmw_window", True), ("kernel_bf16", True),
-    ("kernel_quadform", True), ("pose_grad_kernel", "kernel_bf16")])
+    ("kernel_quadform", True), ("pose_grad_kernel", "kernel_bf16"),
+    ("backend", "jnp")])
 def test_ported_raster_options_render(field, value):
-    """The entry-binned backend (K5 / K6), the windowed backward (K3) and
-    the K1-K4 variants kernel_bf16 / kernel_quadform are ported:
-    check_config accepts them, and a tiny render with its backward runs
-    through their twins on the CPU; so does the pose-contraction path
-    (K1 + K4) under kernel_bf16 (`pose_grad_kernel`)."""
+    """The entry-binned backend (K5 / K6), the windowed backward (K3), the
+    K1-K4 variants kernel_bf16 / kernel_quadform and the dense `jnp`
+    backend are ported: check_config accepts them, and a tiny render with
+    its backward runs through their twins on the CPU (the `jnp` backend
+    through plain PyTorch: no kernel, no twin); so does the
+    pose-contraction path (K1 + K4) under kernel_bf16
+    (`pose_grad_kernel`)."""
     cfg = TR.RasterConfig(**({field: value} if field != "pose_grad_kernel"
                              else {value: True}))
     TR.check_config(cfg)
@@ -158,7 +160,9 @@ def test_ported_raster_options_render(field, value):
     out = TR.render(*args, torch.eye(4), cam, cfg)
     out.color.sum().backward()
     assert float(means.grad.abs().max()) > 0
-    if field == "backend":
+    if value == "jnp":
+        assert not any({**cs.counts(), **ce.counts()}.values())
+    elif field == "backend":
         assert ce.counts()["entries_bwd_twin_calls"] == 1
         assert cs.counts()["bwd_twin_calls"] == 0
     elif field == "rmw_window":
@@ -168,21 +172,33 @@ def test_ported_raster_options_render(field, value):
         assert cs.counts()["bwd_twin_calls"] == 1
 
 
-# Sections whose first entry is now ported keep their case with an added
-# entry that still raises: the VO pinned to another device. Every option of
-# the map and track path is ported, and so are the mesh options (wired
-# below; run over two ranks in tests/test_torch_parallel_e2e.py). The
-# ported branches run in tests/test_torch_config_branches.py (an edge crop
-# of the synthetic_hard frames and the Replica reader among them) and the
-# map and track options in tests/test_torch_config_options.py.
+# Every config branch is ported: the map and track options, the mesh
+# options (wired below; run over two ranks in
+# tests/test_torch_parallel_e2e.py) and the VO's device. The branches run
+# in tests/test_torch_config_branches.py (an edge crop of the
+# synthetic_hard frames and the Replica reader among them), the map and
+# track options in tests/test_torch_config_options.py, the VO on the CPU,
+# pipelined, in tests/test_torch_vo_cpu.py.
 @pytest.mark.parametrize("sections", [
     {"tracking": {"odometry_type": "odometer"}, "vo": {"device": "cpu"}},
     {"tracking": {"help_camera_initialization": True},
      "vo": {"device": "cuda:1"}},
 ], ids=lambda s: next(iter(s)) + "." + str(next(iter(s.values()))))
-def test_unported_config_branches_raise(tmp_path, sections):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GaussianSLAM(_tiny(tmp_path, **sections))
+def test_vo_device_configs_build(tmp_path, sections):
+    """`vo.device: cpu` pins the VO to the host CPU with its one-worker
+    pool; any other value (here "cuda:1") inherits the SLAM device, as in
+    the JAX package: no pool, the VO steps on the tensors it is given."""
+    gslam = GaussianSLAM(_tiny(tmp_path, **sections))
+    try:
+        on_cpu = sections["vo"]["device"] == "cpu"
+        assert gslam.odometer is not None
+        assert gslam.odometer.on_cpu is on_cpu
+        assert (gslam._vo_pool is not None) is on_cpu
+        rgb, depth = gslam._vo_inputs(0)
+        assert rgb.device == (torch.device("cpu") if on_cpu
+                              else gslam.device)
+    finally:
+        gslam.cleanup()
 
 
 @pytest.mark.parametrize("sections,mesh_size,sp", [
@@ -260,8 +276,8 @@ SCENE_CONFIGS = sorted(p for p in (REPO / "configs").glob("*/*.yaml")
                          ids=lambda p: str(p.relative_to(REPO / "configs")))
 def test_scene_configs_pass_port_guards(path, monkeypatch):
     """Every scene configuration the repo ships passes every guard of the
-    port's GaussianSLAM (its dataset name has a reader, no branch it selects
-    raises NotImplementedError)."""
+    port's GaussianSLAM (its dataset name has a reader, its backend is
+    known)."""
     from eags_slam_torch.slam.gaussian_slam import check_run_config
 
     monkeypatch.delenv("EAGS_RMW_WINDOW", raising=False)

@@ -25,7 +25,11 @@ kernel_quadform / kernel_bf16 variants of K1-K4 run on the K1 / K2 cases
 (tiles 16 / 32 / 64, the wide grid, the 1/8 subset with repeats, the cull
 hazard scene) against their twins under the same option, K4 twice bit for
 bit, each launch counted under its variant; the autograd Function and the
-frozen-sorted K4 path take the options from their arguments.
+frozen-sorted K4 path take the options from their arguments. K1 (sorted),
+K5 (entries) and the dense `jnp` backend are held against the dense
+reference `render_dense` at the JAX rasterizer tests' cameras and
+tolerances; the `jnp` backend and LPIPS on the card against their CPU
+runs.
 
 These tests need a CUDA card and skip without one. This file imports no JAX
 (the GPU host has none), so it runs there without the repository's
@@ -904,3 +908,139 @@ def test_variant_paths_launch_their_kernels(variant, cuda_device):
     vc = cs.variant_counts()
     assert vc["K1"][variant] == 1 and vc["K4"][variant] == 1, vc
     assert bool(torch.isfinite(d4).all()) and float(d4.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# Golden checks against the dense reference splatter, the jnp backend and
+# LPIPS on the card
+# ---------------------------------------------------------------------------
+
+# The JAX rasterizer tests' cameras and configs (tests/test_rasterizer*.py):
+# (camera, backend config, tolerance name).
+SMALL_CAM = Camera(60.0, 60.0, 23.5, 15.5, 48, 32)
+BIG_CAM = Camera(90.0, 90.0, 63.5, 31.5, 128, 64)
+GOLDEN = {
+    # test_rasterizer_v2.py: sorted (K1) vs render_dense.
+    "K1_48x32": (SMALL_CAM, dict(tile=16, dup_side=4, backend="sorted",
+                                 seg_cap=256, bands=3), "v2"),
+    "K1_128x64_t32": (BIG_CAM, dict(tile=32, dup_side=3, backend="sorted",
+                                    seg_cap=256, bands=3), "bulk"),
+    "K1_128x64_t64": (BIG_CAM, dict(tile=64, dup_side=2, backend="sorted",
+                                    seg_cap=384, bands=3), "bulk"),
+    # test_rasterizer_pallas.py: entry binning (K5) vs render_dense.
+    "K5_48x32": (SMALL_CAM, dict(tile=16, dup_side=4, backend="pallas",
+                                 max_per_tile=256), "v2"),
+    # test_rasterizer.py: the jnp backend vs render_dense.
+    "jnp_48x32": (SMALL_CAM, dict(tile=16, dup_side=4, tile_capacity=128,
+                                  chunk=32, backend="jnp"), "v1"),
+}
+# Per tolerance name: (color, depth, alpha) absolute, or the bulk bounds of
+# test_rasterizer_v2.py's big-tile test (max 2e-3, mean 2e-5, at most 0.1%
+# of the pixels above 2e-4).
+GOLDEN_TOL = {"v1": (2e-5, 2e-4, 2e-5), "v2": (1e-4, 1e-3, 1e-4)}
+
+
+def golden_scene(cam, seed, device):
+    """The JAX tests' scene: 48 gaussians on the small camera, 96 on the
+    big one, identity pose."""
+    rng = np.random.default_rng(seed)
+    big = cam.width > 64
+    n = 96 if big else 48
+    wx = 0.8 if big else 0.6
+    means = np.stack([rng.uniform(-wx, wx, n), rng.uniform(-0.4, 0.4, n),
+                      rng.uniform(1.0, 3.0, n)], -1).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    arrs = (means, q,
+            np.log(rng.uniform(0.02, 0.07, (n, 3))).astype(np.float32),
+            rng.uniform(-1.0, 3.0, (n, 1)).astype(np.float32),
+            rng.uniform(0, 1, (n, 3)).astype(np.float32),
+            np.eye(4, dtype=np.float32))
+    return [torch.as_tensor(a, device=device) for a in arrs]
+
+
+@pytest.mark.parametrize("case", list(GOLDEN))
+def test_kernels_match_render_dense(case, cuda_device):
+    """K1 (sorted), K5 (entries) and the jnp backend against the dense
+    reference on the card, each at its JAX test's tolerance; the kernels
+    launched and no twin ran."""
+    from eags_slam_torch.ops.rasterizer_ref import render_dense
+
+    cam, kw, tol = GOLDEN[case]
+    args = golden_scene(cam, 0, cuda_device)
+    ref = render_dense(*args, cam, RasterConfig(tile=16, dup_side=4))
+    cs.reset_counts()
+    ce.reset_counts()
+    out = R.render(*args, cam, RasterConfig(**kw))
+    torch.cuda.synchronize()
+    c = {**cs.counts(), **ce.counts()}
+    assert not any(v for k, v in c.items() if "twin" in k), c
+    launched = {"sorted": "fwd_launches", "pallas": "entries_fwd_launches"}
+    for k in ("fwd_launches", "entries_fwd_launches"):
+        assert (c[k] > 0) == (k == launched.get(kw["backend"])), c
+    assert float(out.alpha.max()) > 0.5
+    for name in ("color", "depth", "alpha"):
+        d = (getattr(out, name) - getattr(ref, name)).abs()
+        if tol == "bulk":
+            if name == "depth":
+                continue
+            assert float(d.max()) < 2e-3 and float(d.mean()) < 2e-5, name
+            assert float((d > 2e-4).float().mean()) < 1e-3, name
+        else:
+            atol = GOLDEN_TOL[tol][("color", "depth", "alpha").index(name)]
+            assert float(d.max()) <= atol, (name, float(d.max()))
+
+
+def test_jnp_backend_on_card_matches_cpu(cuda_device):
+    """The dense backend's forward and the gradients of every input on the
+    card against its CPU run: the same float32 operations (TF32 off), so
+    images within 2e-5 and gradients within 1e-3 of each input's largest
+    |grad| (the tolerances of the CPU parity with JAX)."""
+    cfg = RasterConfig(tile=32, dup_side=3, tile_capacity=512, chunk=64,
+                       backend="jnp")
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cpu", cuda_device):
+            args = [a.requires_grad_(True) for a in
+                    golden_scene(BIG_CAM, 1, dev)]
+            out = R.render(*args, BIG_CAM, cfg)
+            (out.color.sum() + 0.1 * out.depth.sum()
+             + 0.05 * out.alpha.sum()).backward()
+            runs[str(dev)] = (out, [a.grad.cpu() for a in args])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (o_c, g_c), (o_g, g_g) = runs["cpu"], runs[str(cuda_device)]
+    for name, atol in (("color", 2e-5), ("depth", 2e-4), ("alpha", 2e-5)):
+        d = (getattr(o_g, name).detach().cpu()
+             - getattr(o_c, name).detach()).abs()
+        assert float(d.max()) <= atol, (name, float(d.max()))
+    for gg, gc in zip(g_g, g_c):
+        scale = max(float(gc.abs().max()), 1e-6)
+        assert float((gg - gc).abs().max()) <= 1e-3 * scale
+
+
+def test_lpips_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """LPIPS(alex) of two 1200x680 images on the card against the CPU, on
+    seeded weights with AlexNet's shapes: within 1e-4 relative (float32
+    convolutions, TF32 off, summed in another order)."""
+    from eags_slam_torch.evaluation import lpips as L
+
+    rng = np.random.default_rng(0)
+    z = {}
+    for i, (o, c, k) in enumerate(((64, 3, 11), (192, 64, 5), (384, 192, 3),
+                                   (256, 384, 3), (256, 256, 3)), start=1):
+        z[f"conv{i}_w"] = (rng.normal(size=(o, c, k, k))
+                           * np.sqrt(2.0 / (c * k * k))).astype(np.float32)
+        z[f"conv{i}_b"] = rng.normal(0, 0.05, o).astype(np.float32)
+        z[f"lin{i}_w"] = rng.uniform(0, 0.2, (1, o, 1, 1)).astype(np.float32)
+    np.savez(tmp_path / "lpips_alex.npz", **z)
+    monkeypatch.setattr(L, "WEIGHTS_PATH", str(tmp_path / "lpips_alex.npz"))
+    monkeypatch.setattr(L, "_NETS", {})
+    a = rng.uniform(0, 1, (680, 1200, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    cpu = L.lpips(torch.as_tensor(a), torch.as_tensor(b))
+    card = L.lpips(torch.as_tensor(a, device=cuda_device),
+                   torch.as_tensor(b, device=cuda_device))
+    assert cpu > 0 and abs(card - cpu) <= 1e-4 * cpu, (card, cpu)
