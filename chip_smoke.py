@@ -11,7 +11,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 "built": native/loader.cpp compiled into build/; null,
                 with each attempt's error); TF32 off for matmuls and
                 convolutions.
-  2. build    - K1-K6 from eags_slam_torch/csrc: one nvcc per source, in
+  2. build    - K1-K7 from eags_slam_torch/csrc: one nvcc per source, in
                 parallel, then one link, all with FMA (every kernel rounds
                 its alpha decisions as the twin does through _rn
                 intrinsics). With --ptxas, also the registers, spills and
@@ -28,7 +28,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 K6 against their twins on the entry layout (dup_side 3,
                 entry_cap_factor 4, max_per_tile 8192), full frame and the
                 frozen binning at a shifted tracking pose, K6 twice bit for
-                bit, both timed on both; then K1 and K2 at the loop
+                bit, both timed on both, and K7 (the entry gather's
+                backward) on K6's grads of the render layout, twice bit
+                for bit and against its plain version, timed beside it and
+                index_add_; then K1 and K2 at the loop
                 closer's shape (tile 16 on the 600x340 localisation camera,
                 a 65,536-gaussian map like the closer's subsample, the full
                 836-tile grid and a shuffled 209-tile quarter, both timed),
@@ -40,7 +43,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 frozen-sorted layout) against their twins under the same
                 option, K4 twice bit for bit, each variant timed beside the
                 default one with its bound on its own work (quadform
-                operations, the bf16 layout's bytes);
+                operations, the bf16 layout's bytes); K2 and K3 in each of
+                the four variants, on the full grid and the subset, twice
+                bit for bit and with the same bits on the ascending and a
+                shuffled copy of the same tile ids;
                 max errors against the stated tolerances; median kernel,
                 twin and backward times; each kernel's bound on every timed
                 shape.
@@ -75,6 +81,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 not run), odometer wins, VO keyframes and ms, the evaluator's
                 metrics, FPS, track / map ms, peak memory. Gate: ATE < 5
                 cm, PSNR > 19 dB, SSIM > 0.55.
+ 6'. repeat   - c2f again with the same config and seeds into a second
+                directory: evaluation.pose_spread over the two runs finds
+                no differing frame in the poses, the VO trajectory or any
+                mapping or tracking record of log.jsonl (timings left
+                out), and the evaluator's ATE, PSNR, SSIM, MS-SSIM and
+                depth-L1 are equal (one input, one answer, as on the TPU).
  6a. vo_cpu   - c2f's 24 frames with `vo.device: cpu`: the edge VO on the
                 host CPU, pipelined one frame ahead on its worker thread;
                 c2f's gates, every VO step on CPU tensors and frames 1-23
@@ -94,9 +106,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 bounds.
   7. entries  - the slice's protocol with EAGS_RCFG=backend=pallas for that
                 run: candidate scoring, frozen-binning tracking and the
-                plain mapping loop all through K5 / K6 (no K1-K4 launch, no
-                twin); the same metrics, and the slice's ATE / PSNR beside
-                them.
+                plain mapping loop all through K5 / K6, the entry gather's
+                backward through K7 (no K1-K4 launch, no twin); the same
+                metrics, and the slice's ATE / PSNR beside them.
   8. slice_k4 - the slice's 12 frames with `tracking.pose_grad_kernel`
                 on (off by default, as in the reference): every tracking
                 backward through K4, mapping on K2; the same gates, and the
@@ -225,27 +237,34 @@ def emit(obj):
 #    log T: 1e-3 + 1e-4 * |log T|. Survivor counts and columns are exact.
 #    Chunks used may differ only on tiles whose largest log T sits at the
 #    -11.5 stop threshold to within rounding: at most 0.5% of tiles.
-#  - K2 grads: cross-block sums by atomicAdd in a run-dependent order, plus
-#    the running-sum order above (K2 recovers T by reciprocals from K1's
-#    log T): per grad row, max abs err <= 1e-3 x the row's max |grad|.
+#  - K2 grads: the running-sum order above (K2 recovers T by reciprocals
+#    from K1's log T) and another order of the pixel sums; the cross-tile
+#    sums take the twin's slot order: per grad row, max abs err <= 1e-3 x
+#    the row's max |grad|. No atomics: two runs, and two orders of the same
+#    tile ids, are equal bit for bit.
 #  - K4 dpose (7,): the same replay as K2, summed per survivor and then
 #    over each block in a fixed order; the twin sums K2's grads over all
 #    gaussians in another order: max abs err <= 1e-3 x max |dpose|. No
 #    atomics: two runs are equal bit for bit.
 #  - K4 path vs the K2 + autograd chain (the same loss): the same chain-rule
-#    sum in another association order, plus K2's atomics: max abs err
+#    sum in another association order: max abs err
 #    <= 1e-3 x max |dpose| (the JAX golden test holds 2e-4 on the CPU).
-#  - K3 grads against K2's twin and against K2: the same sums, added into
-#    the global array in another order (window retires, atomics): per grad
-#    row 1e-3 x the row's max |grad|, as K2.
+#  - K3 grads against K2's twin and against K2: the same sums, the
+#    cluster's regions added in rank order in the band windows before they
+#    reach K2's slot table: per grad row 1e-3 x the row's max |grad|, as
+#    K2; two runs and two tile orders equal bit for bit, as K2.
 #  - K5 outputs against the twin: as K1 (the same per-pair operations, the
 #    running sums in another order); entry counts exact.
 #  - K6 grads: as K2 per row (1e-3 x row max), exact zeros in the columns K5
 #    did not composite, and two runs equal bit for bit (no atomics).
+#  - K7, the entry gather's backward: each column's entries added in the
+#    same order as its plain version, so within 1e-6 of the plain version's
+#    largest |grad| (equal bits expected), twice bit for bit, the sentinel
+#    column zero.
 TOL = {"rgb_alpha_abs": 1e-3, "depth_abs": 1e-3, "depth_rel": 1e-4,
        "logt_abs": 1e-3, "logt_rel": 1e-4, "eff_mismatch_frac": 5e-3,
        "grad_rel_to_rowmax": 1e-3, "dpose_rel_to_max": 1e-3,
-       "chain_rel_to_max": 1e-3}
+       "chain_rel_to_max": 1e-3, "gather_rel_to_max": 1e-6}
 REPLACES = {
     "K1": "eags_slam_tpu/ops/rasterizer_pallas_v2.py:260",
     "K2": "eags_slam_tpu/ops/rasterizer_pallas_v2.py:491",
@@ -253,6 +272,8 @@ REPLACES = {
     "K4": "eags_slam_tpu/ops/rasterizer_pallas_v2.py:1056",
     "K5": "eags_slam_tpu/ops/rasterizer_pallas.py:95",
     "K6": "eags_slam_tpu/ops/rasterizer_pallas.py:180",
+    # Not a Pallas kernel: XLA's scatter-add in the entry gather's backward.
+    "K7": "eags_slam_tpu/ops/rasterizer.py:329",
 }
 SOURCES = {
     "K1": "eags_slam_torch/csrc/composite_sorted_fwd.cu",
@@ -261,13 +282,15 @@ SOURCES = {
     "K4": "eags_slam_torch/csrc/pose_grad_sorted.cu",
     "K5": "eags_slam_torch/csrc/composite_entries_fwd.cu",
     "K6": "eags_slam_torch/csrc/composite_entries_bwd.cu",
+    "K7": "eags_slam_torch/csrc/composite_entries_bwd.cu",
 }
 LAUNCH_KEYS = {"K1": "fwd_launches", "K2": "bwd_launches",
                "K3": "window_launches", "K4": "pose_launches",
-               "K5": "entries_fwd_launches", "K6": "entries_bwd_launches"}
+               "K5": "entries_fwd_launches", "K6": "entries_bwd_launches",
+               "K7": "entries_gather_launches"}
 TWIN_KEYS = ("fwd_twin_calls", "bwd_twin_calls", "window_twin_calls",
              "pose_twin_calls", "entries_fwd_twin_calls",
-             "entries_bwd_twin_calls")
+             "entries_bwd_twin_calls", "entries_gather_twin_calls")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet), the yardstick of
 # every bound_ms: HBM3 bandwidth and FP32 outside the tensor cores.
@@ -718,9 +741,10 @@ def phase_kernels(per_wall: int, reps: int):
         dout = torch.randn(out_t.shape, generator=gen, device="cuda")
         dout[:, 5:] = 0.0
         g_k = cs.composite_sorted_bwd(attrs, tile_ids, out_k, cols_k, dout,
-                                      cfg.tile, tiles_x)
+                                      cfg.tile, tiles_x, cfg.bands)
         g_t = cs.composite_sorted_bwd_plain(attrs, tile_ids, out_t, cols_t,
-                                            dout, cfg.tile, tiles_x)
+                                            dout, cfg.tile, tiles_x,
+                                            cfg.bands)
         g_w = cs.composite_sorted_bwd_window(
             attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
             tiles_x, cfg.bands, cfg.seg_cap, GROUP)
@@ -744,7 +768,8 @@ def phase_kernels(per_wall: int, reps: int):
             res["k1_ms"] = _median_ms(lambda: cs.composite_sorted_fwd(*args),
                                       reps)
             res["k2_ms"] = _median_ms(lambda: cs.composite_sorted_bwd(
-                attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
+                attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x,
+                cfg.bands), reps)
             res["k3_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_window(
                 attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
                 tiles_x, cfg.bands, cfg.seg_cap, GROUP), reps)
@@ -760,9 +785,11 @@ def phase_kernels(per_wall: int, reps: int):
             res["k1_plain_ms"] = _median_ms(
                 lambda: cs.composite_sorted_fwd_plain(*args), max(3, reps // 4))
             res["k2_ms"] = _median_ms(lambda: cs.composite_sorted_bwd(
-                attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
+                attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x,
+                cfg.bands), reps)
             res["k2_plain_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_plain(
-                attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x),
+                attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x,
+                cfg.bands),
                 max(3, reps // 4))
             res["k3_ms"] = _median_ms(lambda: cs.composite_sorted_bwd_window(
                 attrs, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
@@ -893,9 +920,10 @@ def _check_shape(prefix: str, cam, cfg, n_map: int, subset_frac: float,
         dout = torch.randn(out_t.shape, generator=gen, device="cuda")
         dout[:, 5:] = 0.0
         g_k = cs.composite_sorted_bwd(attrs, tile_ids, out_k, cols_k, dout,
-                                      cfg.tile, tiles_x)
+                                      cfg.tile, tiles_x, cfg.bands)
         g_t = cs.composite_sorted_bwd_plain(attrs, tile_ids, out_t, cols_t,
-                                            dout, cfg.tile, tiles_x)
+                                            dout, cfg.tile, tiles_x,
+                                            cfg.bands)
         torch.cuda.synchronize()
         ok_b, rep_b, worst = _compare_bwd(g_k, g_t)
         work = _work(attrs, tile_ids, out_k, cols_k, cfg.tile, tiles_x)
@@ -905,11 +933,13 @@ def _check_shape(prefix: str, cam, cfg, n_map: int, subset_frac: float,
                           _ops("K2", work))
         k1_ms = _median_ms(lambda: cs.composite_sorted_fwd(*args), reps)
         k2_ms = _median_ms(lambda: cs.composite_sorted_bwd(
-            attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
+            attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x,
+            cfg.bands), reps)
         k1_plain = _median_ms(lambda: cs.composite_sorted_fwd_plain(*args),
                               max(3, reps // 4))
         k2_plain = _median_ms(lambda: cs.composite_sorted_bwd_plain(
-            attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x),
+            attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x,
+            cfg.bands),
             max(3, reps // 4))
         tiles = int(tile_ids.shape[0])
         extra["K1"][label] = {
@@ -1063,6 +1093,10 @@ def _check_variants(attrs, seg_start, seg_cnt, cfg, cam, tiles_x, shapes,
         dout = torch.randn((tile_ids.shape[0], 8, cfg.tile ** 2),
                            generator=gen, device="cuda")
         dout[:, 5:] = 0.0
+        # One cotangent a tile of the grid, for the tile-order check.
+        dtab = torch.randn((tiles_x * -(-cam.height // cfg.tile), 8,
+                            cfg.tile ** 2), generator=gen, device="cuda")
+        dtab[:, 5:] = 0.0
         for variant in ("default",) + VARIANTS:
             quad, bf16 = "quadform" in variant, "bf16" in variant
             a = cs.to_bf16_layout(attrs) if bf16 else attrs
@@ -1074,19 +1108,24 @@ def _check_variants(attrs, seg_start, seg_cnt, cfg, cam, tiles_x, shapes,
             out_k, cols_k = cs.composite_sorted_fwd(*fargs)
             out4, cols4 = cs.composite_sorted_fwd(*f4args)
             g_k = cs.composite_sorted_bwd(a, tile_ids, out_k, cols_k, dout,
-                                          cfg.tile, tiles_x, quad)
+                                          cfg.tile, tiles_x, cfg.bands, quad)
             g_w = cs.composite_sorted_bwd_window(
                 a, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
                 tiles_x, cfg.bands, cfg.seg_cap, GROUP, quad)
             d_k = cs.pose_grad_sorted(a4v, jac, tile_ids, out4, cols4, dout,
                                       cfg.tile, tiles_x, quad)
-            r, err = {"tiles": int(tile_ids.shape[0])}, {}
+            order = _check_order(a, seg_start, seg_cnt, cfg, tiles_x,
+                                 tile_ids, out_k, cols_k, g_k, g_w, dout,
+                                 dtab, quad, gen)
+            ok &= all(order.values())
+            r = {"tiles": int(tile_ids.shape[0]), "deterministic": order}
+            err = {}
             if variant != "default":
                 out_t, cols_t = cs.composite_sorted_fwd_plain(*fargs)
                 out4_t, cols4_t = cs.composite_sorted_fwd_plain(*f4args)
                 g_t = cs.composite_sorted_bwd_plain(a, tile_ids, out_t,
                                                     cols_t, dout, cfg.tile,
-                                                    tiles_x, quad)
+                                                    tiles_x, cfg.bands, quad)
                 d_k2 = cs.pose_grad_sorted(a4v, jac, tile_ids, out4, cols4,
                                            dout, cfg.tile, tiles_x, quad)
                 d_t = cs.pose_grad_sorted_plain(a4v, jac, tile_ids, out4_t,
@@ -1119,6 +1158,7 @@ def _check_variants(attrs, seg_start, seg_cnt, cfg, cam, tiles_x, shapes,
                                  reps),
                 "K2": _median_ms(lambda: cs.composite_sorted_bwd(
                     a, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x,
+                    cfg.bands,
                     quad), reps),
                 "K3": _median_ms(lambda: cs.composite_sorted_bwd_window(
                     a, seg_start, tile_ids, out_k, cols_k, dout, cfg.tile,
@@ -1145,11 +1185,54 @@ def _check_variants(attrs, seg_start, seg_cnt, cfg, cam, tiles_x, shapes,
                     "bound_by": bounds[kid]["bound_by"],
                     "bound_share": bounds[kid]["bound_ms"] / ms[kid],
                     "max_abs_err": err.get(kid)}
+                if kid in ("K2", "K3"):
+                    summary[kid]["variants"][variant][label][
+                        "deterministic"] = all(
+                            v for k, v in order.items() if k.startswith(kid))
             r.update({"ms": ms, "boxed_pairs": work["boxed"],
                       "contributing_pairs": work["contrib"],
                       "bounds": bounds})
             rep[f"{variant}_{label}"] = r
     return ok, rep, summary
+
+
+def _check_order(a, seg_start, seg_cnt, cfg, tiles_x, tile_ids, out_k,
+                 cols_k, g_k, g_w, dout, dtab, quad, gen) -> dict:
+    """K2 and K3 (variant of `a` and `quad`) are functions of their inputs:
+    a second call on K1's `out_k` / `cols_k` and `dout` gives `g_k` / `g_w`
+    to the bit, and the ascending and a shuffled copy of the tiles
+    `tile_ids` (K1 run on each, one cotangent a tile from `dtab`) give the
+    same bits."""
+    import torch
+
+    from eags_slam_torch.ops import composite_sorted as cs
+
+    def k2(ids, out, cols, d):
+        return cs.composite_sorted_bwd(a, ids, out, cols, d, cfg.tile,
+                                       tiles_x, cfg.bands, quad)
+
+    def k3(ids, out, cols, d):
+        return cs.composite_sorted_bwd_window(
+            a, seg_start, ids, out, cols, d, cfg.tile, tiles_x, cfg.bands,
+            cfg.seg_cap, GROUP, quad)
+
+    det = {"K2_twice": bool(torch.equal(
+               g_k, k2(tile_ids, out_k, cols_k, dout))),
+           "K3_twice": bool(torch.equal(
+               g_w, k3(tile_ids, out_k, cols_k, dout)))}
+    asc = torch.sort(tile_ids).values
+    shuf = asc[torch.randperm(asc.shape[0], generator=gen, device="cuda")]
+    got = []
+    for ids in (asc, shuf):
+        out, cols = cs.composite_sorted_fwd(a, seg_start, seg_cnt, ids,
+                                            cfg.tile, tiles_x, cfg.bands,
+                                            cfg.seg_cap, quad)
+        d = dtab[ids.long()].contiguous()
+        got.append((k2(ids, out, cols, d), k3(ids, out, cols, d)))
+    torch.cuda.synchronize()
+    det["K2_tile_order"] = bool(torch.equal(got[0][0], got[1][0]))
+    det["K3_tile_order"] = bool(torch.equal(got[0][1], got[1][1]))
+    return det
 
 
 def _entries_bytes(start, count, out, grads=None) -> int:
@@ -1280,6 +1363,9 @@ def _check_entries(cam, gmap, reps, gen):
                 "max_abs_err": max(rep_b[c]["max_abs"] for c in rep_b
                                    if isinstance(rep_b[c], dict))}
         if label == "render":
+            ok_g, r["gather"], k7 = _check_gather(g_k, slot, xyz.shape[0] + 1,
+                                                  reps)
+            ok &= ok_g
             r["k5_plain_ms"] = _median_ms(
                 lambda: ce.composite_entries_fwd_plain(
                     ent, ps, cnt, cfg.tile, tiles_x), max(3, reps // 4))
@@ -1298,9 +1384,53 @@ def _check_entries(cam, gmap, reps, gen):
                                           rep_b if isinstance(rep_b[c], dict)),
                        "ms": r["k6_ms"], "plain_ms": r["k6_plain_ms"],
                        "max_rel_to_rowmax": worst, **k6_bound},
+                "K7": k7,
             }
         rep[label] = r
     return ok, rep, summary
+
+
+def _check_gather(g, slot_gid, n_cols: int, reps: int):
+    """K7, the entry gather's backward, on K6's render-layout grads `g`
+    and the slot layout `slot_gid` they came from: twice bit for bit,
+    against its plain version on the same tensors (the same order of
+    additions), the sentinel column zero; timed beside the plain version
+    and index_add_ (the library call of the same sum), with its bound:
+    g's rows of the entries of a gaussian, slot_gid and the (16, n_cols)
+    output moved once, 16 adds an entry. Returns (ok, report, summary)."""
+    import torch
+
+    from eags_slam_torch.ops import composite_entries as ce
+
+    d1 = ce.gather_entries_bwd(g, slot_gid, n_cols)
+    d2 = ce.gather_entries_bwd(g, slot_gid, n_cols)
+    dp = ce.gather_entries_bwd_plain(g, slot_gid, n_cols)
+    lib = torch.zeros_like(d1).index_add_(1, slot_gid, g)
+    torch.cuda.synchronize()
+    err = float((d1 - dp).abs().max())
+    scale = max(float(dp.abs().max()), 1e-12)
+    lib_err = float((d1[:, :-1] - lib[:, :-1]).abs().max())
+    rep = {"entries": int(slot_gid.shape[0]), "columns": n_cols,
+           "twice_equal": bool(torch.equal(d1, d2)),
+           "plain_equal": bool(torch.equal(d1, dp)), "max_abs_err": err,
+           "rel_to_max": err / scale, "index_add_rel_to_max":
+           lib_err / max(float(lib[:, :-1].abs().max()), 1e-12),
+           "sentinel_zero": float(d1[:, -1].abs().max()) == 0.0}
+    ok = (rep["twice_equal"] and rep["sentinel_zero"]
+          and rep["rel_to_max"] <= TOL["gather_rel_to_max"])
+    summed = int((slot_gid < n_cols - 1).sum())
+    bound = _bound(4 * g.shape[0] * summed + _nbytes(slot_gid, d1),
+                   g.shape[0] * summed)
+    out = {"max_abs_err": err,
+           "ms": _median_ms(lambda: ce.gather_entries_bwd(g, slot_gid,
+                                                          n_cols), reps),
+           "plain_ms": _median_ms(lambda: ce.gather_entries_bwd_plain(
+               g, slot_gid, n_cols), max(3, reps // 4)),
+           "library_ms": _median_ms(lambda: torch.zeros_like(d1).index_add_(
+               1, slot_gid, g), reps), **bound}
+    rep.update({k: out[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")})
+    return ok, rep, out
 
 
 def _run_slam(config, n_frames: int, out_dir: str, phase: str,
@@ -1529,6 +1659,45 @@ def phase_c2f(n_frames: int, out_dir: str):
           "vo_keyframes": vo["n_keyframes"], "vo_dt_ms": vo["mean_dt_ms"]})
     if not ok:
         raise SystemExit("c2f check failed")
+    return line
+
+
+REPEAT_METRICS = ("ate_cm", "ate_aligned_cm", "psnr_db", "ssim", "ms_ssim",
+                  "depth_l1_cm")
+
+
+def phase_repeat(n_frames: int, out_dir: str, c2f_dir: str, c2f_line):
+    """c2f again, the same config and seeds, into another directory. Gate:
+    `evaluation.pose_spread` over the two finds no differing frame in the
+    poses, the VO trajectory, or any mapping or tracking record of
+    log.jsonl (timings left out), and the evaluator's ATE, PSNR, SSIM,
+    MS-SSIM and depth-L1 are equal; K1 / K2 / K4 launched, no twin."""
+    from eags_slam_torch.evaluation.pose_spread import pose_spread
+
+    if c2f_line is None:
+        raise SystemExit("repeat runs c2f again: run both")
+    ok, line, _, _ = _run_slam(c2f_config(out_dir, n_frames), n_frames,
+                               out_dir, "repeat")
+    spread = pose_spread(c2f_dir, out_dir)
+    firsts = {"poses": spread["poses"]["first_differing_frame"],
+              "vo": spread["vo"]["first_differing_frame"]
+              if "vo" in spread else "missing"}
+    for kind in ("mapping", "tracking"):
+        rec = spread.get(kind)
+        firsts[kind] = ("missing" if rec is None or rec["frames"] == 0
+                        else rec["first_difference"])
+    equal = {k: line[k] == c2f_line[k] for k in REPEAT_METRICS}
+    ok &= (all(v is None for v in firsts.values()) and all(equal.values())
+           and spread["poses"]["frames"] == n_frames
+           and all(line["launches"][LAUNCH_KEYS[k]] > 0
+                   for k in ("K1", "K2", "K4")))
+    emit({**line, "ok": ok, "first_differences": firsts,
+          "metrics_equal": equal,
+          "records": {k: spread[k]["frames"] for k in ("mapping", "tracking")
+                      if k in spread},
+          "c2f": {k: c2f_line[k] for k in REPEAT_METRICS + ("fps",)}})
+    if not ok:
+        raise SystemExit("repeat check failed")
     return line
 
 
@@ -1882,9 +2051,9 @@ def _check_global_shape(ev, reps: int):
     dout = torch.randn(out_t.shape, generator=gen, device="cuda")
     dout[:, 5:] = 0.0
     g_k = cs.composite_sorted_bwd(attrs, tile_ids, out_k, cols_k, dout,
-                                  cfg.tile, tiles_x)
+                                  cfg.tile, tiles_x, cfg.bands)
     g_t = cs.composite_sorted_bwd_plain(attrs, tile_ids, out_t, cols_t,
-                                        dout, cfg.tile, tiles_x)
+                                        dout, cfg.tile, tiles_x, cfg.bands)
     torch.cuda.synchronize()
     ok_b, rep_b, worst = _compare_bwd(g_k, g_t)
     work = _work(attrs, tile_ids, out_k, cols_k, cfg.tile, tiles_x)
@@ -1894,11 +2063,12 @@ def _check_global_shape(ev, reps: int):
                       _ops("K2", work))
     k1_ms = _median_ms(lambda: cs.composite_sorted_fwd(*args), reps)
     k2_ms = _median_ms(lambda: cs.composite_sorted_bwd(
-        attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x), reps)
+        attrs, tile_ids, out_k, cols_k, dout, cfg.tile, tiles_x, cfg.bands),
+        reps)
     k1_plain = _median_ms(lambda: cs.composite_sorted_fwd_plain(*args),
                           max(3, reps // 4))
     k2_plain = _median_ms(lambda: cs.composite_sorted_bwd_plain(
-        attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x),
+        attrs, tile_ids, out_t, cols_t, dout, cfg.tile, tiles_x, cfg.bands),
         max(3, reps // 4))
     clipped = int((cnt_all > seg_cnt).any(1).sum())
     entries = {
@@ -2342,8 +2512,9 @@ def phase_replica(out_dir: str, card: str):
 def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
     """The slice's protocol on the entry-binned backend (EAGS_RCFG=
     backend=pallas for this run): candidate scoring, frozen-binning
-    tracking on the full image and the plain mapping loop through K5 / K6.
-    Gate: K5 and K6 launched, no K1-K4 launch, no twin; every frame ran;
+    tracking on the full image and the plain mapping loop through K5 / K6,
+    the entry gather's backward through K7. Gate: K5, K6 and K7 launched,
+    no K1-K4 launch, no twin; every frame ran;
     ATE < 5 cm and PSNR > 20 dB. The slice's ATE / PSNR on the same frames
     (sorted kernels) are printed beside these."""
     ok, line, _, gslam = _run_slam(bench_config(out_dir, n_frames, per_wall),
@@ -2353,6 +2524,7 @@ def phase_entries(per_wall: int, n_frames: int, out_dir: str, slice_line):
     ok &= (gslam.rcfg.backend == "pallas"
            and la["entries_fwd_launches"] > 0
            and la["entries_bwd_launches"] > 0
+           and la["entries_gather_launches"] > 0
            and all(la[LAUNCH_KEYS[k]] == 0 for k in ("K1", "K2", "K3", "K4"))
            and line["ate_cm"] < 5.0 and line["psnr_db"] > 20.0)
     side = {"entries": {"ate_cm": line["ate_cm"], "psnr_db": line["psnr_db"]},
@@ -2671,8 +2843,8 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
                    default="device,build,kernels,slice,lpips,dense,window,"
-                   "c2f,vo_cpu,mesh,lc,heavy,mesh_bound,entries,slice_k4,"
-                   "slice_opts,slice_mapopts,tum,replica")
+                   "c2f,repeat,vo_cpu,mesh,lc,heavy,mesh_bound,entries,"
+                   "slice_k4,slice_opts,slice_mapopts,tum,replica")
     p.add_argument("--out", default="output/chip_smoke")
     p.add_argument("--ptxas", action="store_true",
                    help="print nvcc -Xptxas -v (registers, spills)")
@@ -2708,6 +2880,9 @@ def main():
     if "c2f" in phases:
         c2f_line = phase_c2f(C2F_FRAMES, args.out + "_c2f")
         runs.append(c2f_line)
+    if "repeat" in phases:
+        runs.append(phase_repeat(C2F_FRAMES, args.out + "_repeat",
+                                 args.out + "_c2f", c2f_line))
     if "vo_cpu" in phases:
         runs.append(phase_vo_cpu(C2F_FRAMES, args.out + "_vo_cpu", c2f_line))
     if "mesh" in phases:
@@ -2765,7 +2940,8 @@ def main():
              "max_abs_err": s.get("max_abs_err"),
              "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
              "bound_ms": s.get("bound_ms"),
-             "bound_by": s.get("bound_by"), "library_ms": None,
+             "bound_by": s.get("bound_by"),
+             "library_ms": s.get("library_ms"),
              **{f: s[f] for f in ("run", "subset", "polish", "full",
                                   "frozen", "lc_full", "lc_subset",
                                   "tum_full", "tum_subset", "global",
@@ -2777,7 +2953,7 @@ def main():
             k["launches_by_layout"] = {
                 lay: sum(r["launches_by_layout"][kid][lay] for r in runs)
                 for lay in ce.LAYOUTS}
-        elif runs:
+        elif runs and kid in ("K1", "K2", "K3", "K4"):
             # K1-K4 by variant: default, quadform, bf16, quadform_bf16.
             k["launches_by_variant"] = {
                 v: sum(r["launches_by_variant"][kid][v] for r in runs)

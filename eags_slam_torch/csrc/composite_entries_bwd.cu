@@ -150,3 +150,55 @@ extern "C" int eags_composite_entries_bwd(
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The entry gather's backward (ops/composite_entries.py
+// gather_entries_bwd): the (16, Epad) entry grads summed into the gaussian
+// columns they were gathered from. Replaces XLA's scatter-add
+// `.at[:, slot_gid].add(g)` of eags_slam_tpu/ops/rasterizer.py:329 (in
+// `_gather_entries_bwd`), which adds in one order on the TPU; a float
+// atomicAdd (index_add_) would add in the blocks' order. Here one thread
+// takes a column and adds its entries in ascending entry order (`order`:
+// the entries stably sorted by column; column n's are order[bounds[n] ..
+// bounds[n + 1])), so the sum is the same bits on every run. Columns from
+// n_sum on (the sentinel that empty slots gather, whose grad the caller
+// drops) are zero. Bound by bytes: each entry's 16 grads and its index are
+// read once, each column written once.
+namespace {
+
+constexpr int GATHER_ROWS = 16;
+
+__global__ void __launch_bounds__(256)
+gather_bwd_kernel(const float* __restrict__ g, int64_t epad,
+                  const int64_t* __restrict__ order,
+                  const int64_t* __restrict__ bounds, int64_t n_sum,
+                  int64_t n_cols, float* __restrict__ d) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_cols) return;
+  float acc[GATHER_ROWS];
+#pragma unroll
+  for (int c = 0; c < GATHER_ROWS; ++c) acc[c] = 0.0f;
+  if (n < n_sum) {
+    const int64_t hi = bounds[n + 1];
+    for (int64_t i = bounds[n]; i < hi; ++i) {
+      const int64_t e = order[i];
+#pragma unroll
+      for (int c = 0; c < GATHER_ROWS; ++c) acc[c] += g[c * epad + e];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < GATHER_ROWS; ++c) d[c * n_cols + n] = acc[c];
+}
+
+}  // namespace
+
+extern "C" int eags_gather_entries_bwd(const float* g, int64_t epad,
+                                       const int64_t* order,
+                                       const int64_t* bounds, int64_t n_sum,
+                                       int64_t n_cols, float* d,
+                                       void* stream) {
+  if (n_cols <= 0) return 0;
+  const int64_t blocks = (n_cols + 255) / 256;
+  gather_bwd_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      g, epad, order, bounds, n_sum, n_cols, d);
+  return (int)cudaGetLastError();
+}

@@ -62,11 +62,14 @@ def global_descriptor(rgb: torch.Tensor, dim: int = 1024) -> torch.Tensor:
     nbins = 8
     bin_idx = torch.clamp(((ang + math.pi) / (2 * math.pi) * nbins).long(),
                           0, nbins - 1)
-    r = torch.arange(64, device=rgb.device)
-    cell_idx = (r[:, None] // 8) * 8 + (r[None, :] // 8)
-    hog = torch.zeros(64 * nbins, device=rgb.device)
-    hog.index_add_(0, (cell_idx * nbins + bin_idx).reshape(-1),
-                   mag.reshape(-1))
+    # Each 8 x 8 cell's histogram: its 64 pixels' magnitudes summed per bin
+    # over one fixed axis (a float index_add_ adds with atomics on CUDA, in
+    # the blocks' order). hog[cell * nbins + bin], cells row-major.
+    onehot = (bin_idx[..., None] == torch.arange(nbins, device=rgb.device))
+    per_px = (mag[..., None] * onehot.to(mag.dtype)).reshape(8, 8, 8, 8,
+                                                             nbins)
+    hog = per_px.permute(0, 2, 1, 3, 4).reshape(64, 64, nbins).sum(1) \
+        .reshape(-1)
     hog = hog / torch.clamp(torch.linalg.norm(hog), min=1e-6)
     color_grid = _resize_linear(small, 8, 8).reshape(-1)
     gray_grid = _resize_linear(gray, 8, 8).reshape(-1) / 255.0

@@ -31,11 +31,19 @@ The twins are the sorted backend's chunk loop and replay
 (`composite_sorted._composite_cols`, `_replay_grads`) on each tile's
 contiguous column range.
 
+The entries are gathered from the gaussian columns (`rasterizer.
+_gather_entries`); `gather_entries_bwd` sums their grads back into the
+columns, each column's entries in ascending entry order (a stable sort of
+the gathered column ids), with a CUDA kernel beside K6 on the card and
+plain PyTorch on the CPU: the same bits on every run, where an index_add_
+would add with atomics in the blocks' order.
+
 Dispatch: a CPU tensor takes the plain twin; a CUDA tensor launches the
 kernel (built from `csrc/` with the other kernels, at first use) or raises.
 `counts()` holds the kernel launches (`entries_fwd_launches`,
-`entries_bwd_launches`) and twin calls (`entries_fwd_twin_calls`,
-`entries_bwd_twin_calls`); `layout_counts` splits the launches by the
+`entries_bwd_launches`, `entries_gather_launches`) and twin calls
+(`entries_fwd_twin_calls`, `entries_bwd_twin_calls`,
+`entries_gather_twin_calls`); `layout_counts` splits the launches by the
 layout the caller names (the render binning, or the tracker's frozen
 binning). Both keep work tagged by `composite_sorted.counting_as` apart.
 """
@@ -49,7 +57,8 @@ from .composite_sorted import (MAIN, NCH, OUT_CH, LaunchCounts, _check,
 
 LAYOUTS = ("render", "frozen")
 _counts = LaunchCounts(("entries_fwd_launches", "entries_bwd_launches",
-                        "entries_fwd_twin_calls", "entries_bwd_twin_calls"))
+                        "entries_gather_launches", "entries_fwd_twin_calls",
+                        "entries_bwd_twin_calls", "entries_gather_twin_calls"))
 # Launches by layout, keys "K5.render", "K6.frozen", ...
 _layouts = LaunchCounts(f"{k}.{lay}" for k in ("K5", "K6")
                         for lay in LAYOUTS)
@@ -171,6 +180,64 @@ def composite_entries_bwd(entries, start, count, out, dout, tile: int,
     _counts.bump("entries_bwd_launches", entries.device)
     _layouts.bump(f"K6.{layout}", entries.device)
     return grads
+
+
+def _gather_segments(slot_gid, n_cols: int):
+    """Each column's entries in ascending entry order: (order (E,) i64, the
+    entries stably sorted by column; bounds (n_cols + 1,) i64, column n's
+    entries order[bounds[n]:bounds[n + 1]])."""
+    sg, order = torch.sort(slot_gid, stable=True)
+    bounds = torch.searchsorted(
+        sg, torch.arange(n_cols + 1, device=slot_gid.device))
+    return order, bounds
+
+
+@torch.no_grad()
+def gather_entries_bwd_plain(g, slot_gid, n_cols: int):
+    """Plain PyTorch version of the gather's backward: (C, n_cols), column
+    n < n_cols - 1 the sum of g's entries gathered from it, added in
+    ascending entry order; the last column (the sentinel the empty slots
+    gather, which the caller drops) zero. One pass a position in the
+    columns' entry lists, each adding one entry to distinct columns."""
+    _counts.bump("entries_gather_twin_calls", g.device)
+    order, bounds = _gather_segments(slot_gid, n_cols)
+    start = bounds[:-1]
+    cnt = bounds[1:] - start
+    cnt[-1] = 0
+    d = g.new_zeros((g.shape[0], n_cols))
+    cols = torch.arange(n_cols, device=g.device)
+    for pos in range(int(cnt.max()) if n_cols else 0):
+        has = cnt > pos
+        c = cols[has]
+        d[:, c] = d[:, c] + g[:, order[start[has] + pos]]
+    return d
+
+
+def gather_entries_bwd(g, slot_gid, n_cols: int):
+    """The entry gather's backward, `gather_entries_bwd_plain`'s function:
+    the kernel beside K6 on CUDA tensors, the plain version on CPU tensors.
+    g (16, E) float32, slot_gid (E,) int64 in [0, n_cols). Returns (16,
+    n_cols) float32."""
+    if g.device.type == "cpu":
+        return gather_entries_bwd_plain(g, slot_gid, n_cols)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"gather_entries_bwd: no kernel for device "
+                           f"{g.device}")
+    lib = load_kernels()
+    g = g.contiguous()
+    _check(g, "g", torch.float32, 2)
+    _check(slot_gid, "slot_gid", torch.int64, 1)
+    if g.shape[0] != NCH or slot_gid.shape[0] != g.shape[1]:
+        raise ValueError("g must be (16, E) and slot_gid (E,)")
+    order, bounds = _gather_segments(slot_gid, n_cols)
+    d = torch.empty((NCH, n_cols), dtype=torch.float32, device=g.device)
+    err = lib.eags_gather_entries_bwd(
+        g.data_ptr(), g.shape[1], order.data_ptr(), bounds.data_ptr(),
+        n_cols - 1, n_cols, d.data_ptr(),
+        torch.cuda.current_stream(g.device).cuda_stream)
+    _cuda_check(err, "gather backward launch")
+    _counts.bump("entries_gather_launches", g.device)
+    return d
 
 
 class CompositeEntries(torch.autograd.Function):

@@ -32,6 +32,16 @@ Semantics (identical in kernel and twin):
   - The backward mirrors `_replay_chunks` term by term, including dop =
     sum(d_alpha * g) with g = exp(min(power, 0)) where alpha was clipped at
     0.99, and the max(1 - alpha, 1e-6) guard. Grads land in (16, Npad).
+  - The backward sums across tiles in a fixed order, as the TPU grid's
+    in-order read-modify-write did: each tile's total of a survivor column
+    goes into the column's slot k = (ty mod bands) * bands + (tx mod bands)
+    for the tile (`table_slot`; the tiles that see one column differ in
+    that pair), and each column's slots are added in the order k = 0 ..
+    bands^2 - 1 (`csrc/slot_table.cuh`). A tile that tile_ids repeats is
+    replayed once, with its copies' cotangent rows added in row order (the
+    backward is linear in the cotangent). So K2, K3 and K2's twin give the
+    same bits on every call and for every order of tile_ids that holds
+    each tile once.
   - Every kernel (K1-K4 here, K5 / K6 in `composite_entries`) skips the
     (pixel, survivor) pairs outside each survivor's conservative alpha box
     (`alpha_box`), where alpha is zero: the skip changes no sum.
@@ -40,8 +50,8 @@ Semantics (identical in kernel and twin):
     (at most `group`; `window_run` takes one)
     and keeps, per band, a window of the band's seg_cap lanes in the
     cluster's shared memory, adding each lane to the global array once,
-    when the window moves past it.
-    The sums are K2's, so K2's twin is K3's plain version.
+    when the window moves past it, into the slot of the last tile that
+    added to it. The sums are K2's, so K2's twin is K3's plain version.
   - K4 replays as K2 does but keeps only the 6 pose-dependent rows
     (`GROWS`: u, v, conic a/b/c, depth) and contracts each survivor's
     totals with its pose jacobian jac (48, Npad), row p * 6 + ch for pose
@@ -108,6 +118,7 @@ P_MAX = 8                    # pose parameters, padded (7 used)
 GROWS = (0, 1, 2, 3, 4, 9)   # attr rows matching the PJ jacobian channels
 
 MAX_BANDS = 8
+NG = 10                      # gradient rows: attrs rows 0-9
 
 last_window_run = 0          # the run K3's last launch took
 
@@ -543,12 +554,14 @@ def _composite_cols(attrs, cols, n_surv, tile_ids, tile: int, tiles_x: int,
 
 @torch.no_grad()
 def composite_sorted_bwd_plain(attrs, tile_ids, out, cols, dout, tile: int,
-                               tiles_x: int, quadform: bool = False):
+                               tiles_x: int, bands: int,
+                               quadform: bool = False):
     """Plain PyTorch twin of K2: the analytic reverse chunk replay of
-    `_replay_chunks`. Returns grads (16, Npad) float32."""
+    `_replay_chunks`, the cross-tile sums in K2's slot order. Returns grads
+    (16, Npad) float32."""
     _counts.bump("bwd_twin_calls", attrs.device)
     return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x,
-                         quadform)
+                         quadform, bands)
 
 
 @torch.no_grad()
@@ -563,13 +576,53 @@ def pose_grad_sorted_plain(attrs, jac, tile_ids, out, cols, dout, tile: int,
     return (jac[: 7 * PJ].reshape(7, PJ, -1) * gsel[None]).sum((1, 2))
 
 
+def table_slot(tile_ids, tiles_x: int, bands: int):
+    """Each tile's slot in the slot table of the columns it sees
+    (`csrc/slot_table.cuh`): (S,) int64."""
+    tc = tile_ids.long()
+    return (tc // tiles_x % bands) * bands + tc % tiles_x % bands
+
+
+def _fold_repeats(tile_ids, out, cols, dout):
+    """Each tile once, as K2 / K3's fold_repeats gives it: a tile's first
+    row, with its copies' cotangent rows added in row order (the backward
+    is linear in the cotangent, and out / cols are a tile's own)."""
+    ids = tile_ids.tolist()
+    first, keep, merged = {}, [], None
+    for r, t in enumerate(ids):
+        if t not in first:
+            first[t] = r
+            keep.append(r)
+            continue
+        if merged is None:
+            merged = dout.clone()
+        merged[first[t]] += dout[r]
+    if merged is None:
+        return tile_ids, out, cols, dout
+    keep = torch.tensor(keep, device=tile_ids.device)
+    return tile_ids[keep], out[keep], cols[keep], merged[keep]
+
+
 def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
-                  tiles_x: int, quadform: bool = False):
+                  tiles_x: int, quadform: bool = False, bands=None):
+    """The replay's grads (16, Npad). With `bands` a repeated tile is
+    folded into its first copy and the tiles' totals of a column are kept
+    apart in its slot table and summed in slot order, as K2 and K3 sum them
+    (the columns' tiles must hold the band geometry); without it (K4's and
+    K6's twins) they are added in chunk order."""
     attrs = _as_f32(attrs)
     grads = torch.zeros_like(attrs)
     s = tile_ids.shape[0]
     if s == 0:
         return grads
+    if bands is not None:
+        tile_ids, out, cols, dout = _fold_repeats(tile_ids, out, cols, dout)
+        npad = attrs.shape[1]
+        table = torch.zeros((bands * bands, NG, npad), dtype=torch.float32,
+                            device=attrs.device)
+        written = torch.zeros((bands * bands, npad), dtype=torch.bool,
+                              device=attrs.device)
+        key = table_slot(tile_ids, tiles_x, bands)
     # K1 leaves the columns past each tile's survivor count unwritten.
     lane = torch.arange(cols.shape[1], device=cols.device)
     cols = torch.where(lane[None, :] < out[:, 7, :1].long(), cols,
@@ -621,10 +674,24 @@ def _replay_grads(attrs, tile_ids, out, cols, dout, tile: int,
         c = cols[:, ci * CHUNK:(ci + 1) * CHUNK].long()
         if c.shape[1] < CHUNK:
             c = torch.nn.functional.pad(c, (0, CHUNK - c.shape[1]))
-        grads[:10].index_add_(1, c.reshape(-1), dG.reshape(10, -1))
+        if bands is None:
+            grads[:10].index_add_(1, c.reshape(-1), dG.reshape(10, -1))
+        else:
+            kk = key[:, None].expand_as(c)[ok]
+            cc = c[ok]
+            if bool(written[kk, cc].any()):
+                raise RuntimeError("two tiles of one slot see a column: the "
+                                   "seg tables do not hold the band "
+                                   "geometry")
+            table[kk, :, cc] = dG.permute(1, 2, 0)[ok]
+            written[kk, cc] = True
         m = live[:, None]
         bvec = torch.where(m, bvec + wq.sum(-1), bvec)
         log_t_end = torch.where(m, log_t_in, log_t_end)
+    if bands is not None:
+        for k in range(bands * bands):
+            grads[:NG] = torch.where(written[k], grads[:NG] + table[k],
+                                     grads[:NG])
     return grads
 
 
@@ -636,7 +703,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("composite_sorted_fwd.cu", "composite_sorted_bwd.cu",
            "composite_sorted_bwd_window.cu", "pose_grad_sorted.cu",
            "composite_entries_fwd.cu", "composite_entries_bwd.cu")
-HEADERS = ("alpha_box.cuh", "warp_patch.cuh")
+HEADERS = ("alpha_box.cuh", "slot_table.cuh", "warp_patch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eags_kernels"
 # Every kernel rounds its alpha decisions as the twin does with explicit
 # intrinsics (`twin_alpha`, alpha_box.cuh) and uses FMA elsewhere.
@@ -730,11 +797,14 @@ def _load_kernels(verbose: bool):
     lib.eags_composite_sorted_fwd.argtypes = [P, L, P, P, P, I, I, I, I, I,
                                               P, P, I, P]
     lib.eags_composite_sorted_fwd.restype = I
-    lib.eags_composite_sorted_bwd.argtypes = [P, L, P, I, I, I, I, P, P, P,
-                                              P, I, P]
+    # K2 / K3 take the folded cotangent rows (merged, row_flag), K2 its
+    # regions' scratch (parts, counters), then the slot table (slots,
+    # flags) before the grads.
+    lib.eags_composite_sorted_bwd.argtypes = [P, L, P, I, I, I, I, I, P, P,
+                                              P, P, P, P, P, P, P, P, I, P]
     lib.eags_composite_sorted_bwd.restype = I
     lib.eags_composite_sorted_bwd_window.argtypes = [
-        P, L, P, I, I, P, I, I, I, I, I, P, P, P, P, I, P]
+        P, L, P, I, I, P, I, I, I, I, I, P, P, P, P, P, P, P, P, I, P]
     lib.eags_composite_sorted_bwd_window.restype = I
     lib.eags_pose_grad_sorted.argtypes = [P, P, L, P, I, I, I, I, P, P, P,
                                           P, I, P]
@@ -743,6 +813,8 @@ def _load_kernels(verbose: bool):
     lib.eags_composite_entries_fwd.restype = I
     lib.eags_composite_entries_bwd.argtypes = [P, L, P, I, I, I, P, P, P, P]
     lib.eags_composite_entries_bwd.restype = I
+    lib.eags_gather_entries_bwd.argtypes = [P, L, P, P, L, L, P, P]
+    lib.eags_gather_entries_bwd.restype = I
     _LIB = lib
     return lib
 
@@ -812,15 +884,30 @@ def composite_sorted_fwd(attrs, seg_start, seg_cnt, tile_ids, tile: int,
     return out, cols
 
 
+def _table(bands: int, npad: int, dout):
+    """K2 / K3's scratch (`csrc/slot_table.cuh`), all left unwritten: the
+    slots (bands^2, npad, 10) float32 and their flags (bands^2, npad)
+    uint8, which the kernel's C entry clears, and fold_repeats' merged
+    cotangent rows (like dout) and row flags (S,) int32."""
+    dev = dout.device
+    return (torch.empty((bands * bands, npad, NG), dtype=torch.float32,
+                        device=dev),
+            torch.empty((bands * bands, npad), dtype=torch.uint8,
+                        device=dev),
+            torch.empty_like(dout),
+            torch.empty(dout.shape[0], dtype=torch.int32, device=dev))
+
+
 def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
-                         tiles_x: int, quadform: bool = False):
-    """K2 on CUDA tensors, the plain twin on CPU tensors (attrs as K1's).
-    Returns grads (16, Npad) f32 in the float32 attrs' rows (cross-tile
-    sums via atomicAdd: the summation order, and so the last bits, vary
-    from run to run)."""
+                         tiles_x: int, bands: int, quadform: bool = False):
+    """K2 on CUDA tensors, the plain twin on CPU tensors (attrs as K1's;
+    `bands` as the seg tables K1 read). Returns grads (16, Npad) f32 in the
+    float32 attrs' rows, summed across tiles in the slot order of the
+    module doc: the same bits on every call and for every order of
+    tile_ids (a repeated tile folded into its first copy)."""
     if attrs.device.type == "cpu":
         return composite_sorted_bwd_plain(attrs, tile_ids, out, cols, dout,
-                                          tile, tiles_x, quadform)
+                                          tile, tiles_x, bands, quadform)
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
@@ -831,18 +918,32 @@ def composite_sorted_bwd(attrs, tile_ids, out, cols, dout, tile: int,
                              (cols, "cols", torch.int32, 2),
                              (dout, "dout", torch.float32, 3)):
         _check(t, name, dt, dim)
-    grads = torch.zeros(attrs.shape, dtype=torch.float32,
+    if not 1 <= bands <= MAX_BANDS:
+        raise ValueError(f"K2 takes 1 <= bands <= {MAX_BANDS}; got {bands}")
+    npad = attrs.shape[1]
+    grads = torch.empty((NCH, npad), dtype=torch.float32,
                         device=attrs.device)
+    slots, flags, merged, row_flag = _table(bands, npad, dout)
     s = tile_ids.shape[0]
-    if s == 0:
-        return grads
+    # A tile's regions' totals, chunk by chunk, for the last region's
+    # fixed-order sum (tiles of one block store theirs directly).
+    nchunk = -(-cols.shape[1] // CHUNK)
+    parts = counters = None
+    if regions(tile) > 1:
+        parts = torch.empty((s, nchunk, regions(tile), NG, CHUNK),
+                            dtype=torch.float32, device=attrs.device)
+        counters = torch.empty(s, dtype=torch.int32, device=attrs.device)
     err = lib.eags_composite_sorted_bwd(
-        attrs.data_ptr(), attrs.shape[1], tile_ids.data_ptr(), s, tile,
-        tiles_x, cols.shape[1], out.data_ptr(), cols.data_ptr(),
-        dout.data_ptr(), grads.data_ptr(), _opts(attrs, quadform),
+        attrs.data_ptr(), npad, tile_ids.data_ptr(), s, tile, tiles_x,
+        bands, cols.shape[1], out.data_ptr(), cols.data_ptr(),
+        dout.data_ptr(), merged.data_ptr(), row_flag.data_ptr(),
+        None if parts is None else parts.data_ptr(),
+        None if counters is None else counters.data_ptr(), slots.data_ptr(),
+        flags.data_ptr(), grads.data_ptr(), _opts(attrs, quadform),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K2 launch")
-    _bump_launch("bwd_launches", "K2", attrs, quadform)
+    if s:
+        _bump_launch("bwd_launches", "K2", attrs, quadform)
     return grads
 
 
@@ -861,12 +962,13 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
     version (the same sums). `seg_start` (T, bands) gives each tile's band
     windows; a cluster takes `window_run` consecutive entries of tile_ids
     (at most `group`), and `last_window_run` records the run it launched.
-    attrs as K1's. Returns grads (16, Npad) f32 (lanes leave a cluster
-    through global atomicAdd: the last bits vary from run to run)."""
+    attrs as K1's. Returns grads (16, Npad) f32, summed in K2's slot order:
+    the same bits on every call (and, with one tile a run, for every order
+    of tile_ids; a repeated tile folded into its first copy)."""
     if attrs.device.type == "cpu":
         _counts.bump("window_twin_calls", attrs.device)
         return _replay_grads(attrs, tile_ids, out, cols, dout, tile, tiles_x,
-                             quadform)
+                             quadform, bands)
     if attrs.device.type != "cuda":
         raise RuntimeError(f"composite_sorted: no kernel for device "
                            f"{attrs.device}")
@@ -883,21 +985,23 @@ def composite_sorted_bwd_window(attrs, seg_start, tile_ids, out, cols, dout,
         raise ValueError(f"K3 takes bands <= {MAX_BANDS}, bands*seg_cap <= "
                          f"{MAX_CAPT}, seg_cap a multiple of {CHUNK}, "
                          f"group >= 1; got {bands}, {seg_cap}, {group}")
-    grads = torch.zeros(attrs.shape, dtype=torch.float32,
+    npad = attrs.shape[1]
+    grads = torch.empty((NCH, npad), dtype=torch.float32,
                         device=attrs.device)
+    slots, flags, merged, row_flag = _table(bands, npad, dout)
     s = tile_ids.shape[0]
-    if s == 0:
-        return grads
     global last_window_run
     run = last_window_run = min(group, window_run())
     err = lib.eags_composite_sorted_bwd_window(
-        attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(), bands,
-        seg_cap, tile_ids.data_ptr(), s, run, tile, tiles_x, cols.shape[1],
-        out.data_ptr(), cols.data_ptr(), dout.data_ptr(), grads.data_ptr(),
-        _opts(attrs, quadform),
+        attrs.data_ptr(), npad, seg_start.data_ptr(), bands, seg_cap,
+        tile_ids.data_ptr(), s, run, tile, tiles_x, cols.shape[1],
+        out.data_ptr(), cols.data_ptr(), dout.data_ptr(), merged.data_ptr(),
+        row_flag.data_ptr(), slots.data_ptr(), flags.data_ptr(),
+        grads.data_ptr(), _opts(attrs, quadform),
         torch.cuda.current_stream(attrs.device).cuda_stream)
     _cuda_check(err, "K3 launch")
-    _bump_launch("window_launches", "K3", attrs, quadform)
+    if s:
+        _bump_launch("window_launches", "K3", attrs, quadform)
     return grads
 
 
@@ -952,9 +1056,11 @@ def pose_grad_sorted(attrs, jac, tile_ids, out, cols, dout, tile: int,
 class CompositeSorted(torch.autograd.Function):
     """Differentiable w.r.t. attrs rows 0-9 (row 10, the radius, only
     gates coverage and gets no gradient, as in the JAX version). The
-    backward is K2, or K3 with `rmw_window`. With `bf16` the float32 attrs
-    go to their bf16 layout once, inside the Function, and both kernels
-    read it; the grads come back in the float32 attrs' rows."""
+    backward is K2, or K3 with `rmw_window`; either sums across tiles in
+    the fixed slot order of the module doc, so one input gives one grad,
+    bit for bit, as on the TPU. With `bf16` the float32 attrs go to their
+    bf16 layout once, inside the Function, and both kernels read it; the
+    grads come back in the float32 attrs' rows."""
 
     @staticmethod
     def forward(ctx, attrs, seg_start, seg_cnt, tile_ids, tile, tiles_x,
@@ -981,7 +1087,7 @@ class CompositeSorted(torch.autograd.Function):
         else:
             grads = composite_sorted_bwd(attrs, tile_ids, out, cols,
                                          dout.contiguous(), tile, tiles_x,
-                                         quadform)
+                                         bands, quadform)
         return (grads,) + (None,) * 11
 
 

@@ -58,7 +58,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.camera import Camera
-from .composite_entries import composite_entries
+from .composite_entries import composite_entries, gather_entries_bwd
 from .composite_sorted import (NCH, P_MAX, PJ, composite_sorted,
                                composite_sorted_fwd, pose_grad_sorted,
                                to_bf16_layout)
@@ -635,8 +635,10 @@ def _build_slots(proj: _Projected, cam: Camera, cfg: RasterConfig,
 
 
 class _GatherEntries(torch.autograd.Function):
-    """entries (NCH, Epad) = attrs[:, slot_gid]; the backward adds the
-    entry grads back into (NCH, N + 1) columns with index_add_."""
+    """entries (NCH, Epad) = attrs[:, slot_gid]; the backward sums the
+    entry grads back into (NCH, N + 1) columns in a fixed order
+    (`gather_entries_bwd`: each column's entries in ascending entry order;
+    column N, the sentinel, which `_with_sentinel`'s caller drops, zero)."""
 
     @staticmethod
     def forward(ctx, attrs, slot_gid):
@@ -647,9 +649,7 @@ class _GatherEntries(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (slot_gid,) = ctx.saved_tensors
-        d = g.new_zeros((g.shape[0], ctx.n_cols))
-        d.index_add_(1, slot_gid, g)
-        return d, None
+        return gather_entries_bwd(g, slot_gid, ctx.n_cols), None
 
 
 def _gather_entries(attrs, slot_gid):

@@ -2,7 +2,8 @@
 """A/B timing of compositing-kernel variants on one CUDA card.
 
     python3 kernel_ab.py                      # base, regs_free, reduce10
-    python3 kernel_ab.py --parent DIR         # + K1's source from DIR
+    python3 kernel_ab.py --parent DIR         # + K1's, K2's and K3's
+                                              # sources from DIR
     python3 kernel_ab.py --sass DIR           # default instances' SASS
                                               # against DIR's
 
@@ -19,6 +20,13 @@ bit); then times them in four rounds that alternate the order (median of
   parent_k1  K1's source taken from another checkout (DIR, e.g. a parent
              commit unpacked with git archive) with the same C interface
              (the variant argument `opts` before the stream)
+  parent_k2  K2's and K3's sources taken from DIR, whose C interface adds
+             across tiles into zeroed grads (the atomicAdd K2 and K3 before
+             the fixed-order slot table), called through that interface;
+             checked against base within chip_smoke.py's K2 tolerance
+             (1e-3 of each row's max), not bit for bit, and timed on the
+             main shape's full grid and 1/8 subset beside base's K2 / K3,
+             table clearing and reduce included
 Prints the card's name and power limit, one JSON line per variant with the
 registers nvcc reports for K1, K4 and K5, the check, and the timings.
 Exits 1 without a CUDA card.
@@ -60,6 +68,44 @@ REDUCE10 = [("pose_grad_sorted.cu",
              "          const int c = ch < 5 ? ch : (ch == 9 ? 5 : -1);\n"
              "          if (c >= 0) s_warp[warp][c][j] = v;\n"
              "        }, B, s_q);")]
+
+
+def bind_parent_k2(lib):
+    """The C interface of K2 / K3 before the slot table: grads (16, npad)
+    zeroed by the caller, added into with atomics."""
+    import ctypes
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.eags_composite_sorted_bwd.argtypes = [P, L, P, I, I, I, I, P, P, P,
+                                              P, I, P]
+    lib.eags_composite_sorted_bwd_window.argtypes = [
+        P, L, P, I, I, P, I, I, I, I, I, P, P, P, P, I, P]
+
+
+def parent_bwd(lib, attrs, ss, ids, out, cols, dout, tile, tx, bands,
+               seg_cap, window):
+    """K2 (or K3, `window`, one tile a cluster) through bind_parent_k2's
+    interface, the default variant."""
+    import torch
+
+    from eags_slam_torch.ops import composite_sorted as cs
+
+    grads = torch.zeros(attrs.shape, dtype=torch.float32,
+                        device=attrs.device)
+    stream = torch.cuda.current_stream(attrs.device).cuda_stream
+    if window:
+        err = lib.eags_composite_sorted_bwd_window(
+            attrs.data_ptr(), attrs.shape[1], ss.data_ptr(), bands, seg_cap,
+            ids.data_ptr(), ids.shape[0], cs.window_run(), tile, tx,
+            cols.shape[1], out.data_ptr(), cols.data_ptr(), dout.data_ptr(),
+            grads.data_ptr(), 0, stream)
+    else:
+        err = lib.eags_composite_sorted_bwd(
+            attrs.data_ptr(), attrs.shape[1], ids.data_ptr(), ids.shape[0],
+            tile, tx, cols.shape[1], out.data_ptr(), cols.data_ptr(),
+            dout.data_ptr(), grads.data_ptr(), 0, stream)
+    cs._cuda_check(err, "parent K2 / K3 launch")
+    return grads
 
 
 def build_variant(cs, name, subs=(), files=None):
@@ -167,7 +213,8 @@ def compare_sass(other: str) -> bool:
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent", help="checkout whose K1 source to time")
+    p.add_argument("--parent", help="checkout whose K1, K2 and K3 sources "
+                                    "to time")
     p.add_argument("--sass", help="checkout whose default kernels' SASS "
                                   "to compare")
     p.add_argument("--rounds", type=int, default=4)
@@ -200,6 +247,11 @@ def main():
             cs, "parent_k1", files={"composite_sorted_fwd.cu": k1})
         print(json.dumps({"variant": "parent_k1", "registers": regs}),
               flush=True)
+        par = Path(args.parent) / "eags_slam_torch/csrc"
+        libs["parent_k2"], _ = build_variant(cs, "parent_k2", files={
+            f: (par / f).read_text() for f in (
+                "composite_sorted_bwd.cu", "composite_sorted_bwd_window.cu")})
+        bind_parent_k2(libs["parent_k2"])
 
     # chip_smoke.py's kernels-map inputs, its subset and polish sets.
     (attrs, ss, sc, cfg, cam, tx, ty, _, _, gmap) = smk._kernel_inputs(
@@ -252,6 +304,25 @@ def main():
         "K5_frozen": (["base", "regs_free"], lambda: ce.composite_entries_fwd(
             fent, fb.pstart, fb.count, 32, tx)),
     }
+    bwd = ["base"] + (["parent_k2"] if args.parent else [])
+    for lab, ids in (("full", full), ("subset", subset)):
+        out, cols = cs.composite_sorted_fwd(attrs, ss, sc, ids, cfg.tile, tx,
+                                            cfg.bands, cfg.seg_cap)
+        dout = torch.randn(out.shape, generator=gen, device="cuda")
+        dout[:, 5:] = 0.0
+        for kid, window in (("K2", False), ("K3", True)):
+            def fn(ids=ids, out=out, cols=cols, dout=dout, window=window):
+                if cs._LIB is libs.get("parent_k2"):
+                    return parent_bwd(cs._LIB, attrs, ss, ids, out, cols,
+                                      dout, cfg.tile, tx, cfg.bands,
+                                      cfg.seg_cap, window)
+                if window:
+                    return cs.composite_sorted_bwd_window(
+                        attrs, ss, ids, out, cols, dout, cfg.tile, tx,
+                        cfg.bands, cfg.seg_cap, smk.GROUP)
+                return cs.composite_sorted_bwd(attrs, ids, out, cols, dout,
+                                               cfg.tile, tx, cfg.bands)
+            jobs[f"{kid}_{lab}"] = (bwd, fn)
     for lab, (ids, out, cols, dout) in k4in.items():
         jobs["K4_" + lab] = (["base", "reduce10"],
                              lambda ids=ids, out=out, cols=cols, dout=dout:
@@ -263,8 +334,13 @@ def main():
         ref = fn()
         for v in vs[1:]:
             cs._LIB = libs[v]
+            got = fn()
             torch.cuda.synchronize()
-            check[f"{name}:{v}"] = bool(torch.equal(fn(), ref))
+            # The parent's K2 / K3 add with atomics: equal to base within
+            # the K2 tolerance, not bit for bit.
+            check[f"{name}:{v}"] = (smk._compare_bwd(got, ref)[0]
+                                    if v == "parent_k2"
+                                    else bool(torch.equal(got, ref)))
     print(json.dumps({"equal_to_base": check}), flush=True)
     times = {k: {v: [] for v in vs} for k, (vs, _) in jobs.items()}
     for rnd in range(args.rounds):

@@ -126,10 +126,10 @@ def test_k2_twin_matches_jax_vjp(case):
         TILES_X, JCFG.bands, JCFG.seg_cap)
     t_grad = cs.composite_sorted_bwd_plain(t_attrs, t_ids, t_out, t_cols,
                                            torch.as_tensor(dout), JCFG.tile,
-                                           TILES_X).numpy()
+                                           TILES_X, JCFG.bands).numpy()
     # Grad tolerance: per row, 1e-4 of the row's largest |grad| (float32
     # sums over 256 pixels taken in another order: matmuls on the JAX side,
-    # cumsums and index_add here).
+    # cumsums and the slot order of the cross-tile sum here).
     for row in range(10):
         scale = max(np.abs(j_grad[row]).max(), 1e-12)
         np.testing.assert_allclose(t_grad[row], j_grad[row],
@@ -173,7 +173,7 @@ def test_big_tiles_twins_match_jax(tile, dup, seg_cap):
     t_grad = cs.composite_sorted_bwd_plain(t_attrs, torch.as_tensor(ids),
                                            t_out, t_cols,
                                            torch.as_tensor(dout), tile,
-                                           tx).numpy()
+                                           tx, cfg.bands).numpy()
     for row in range(10):
         scale = max(np.abs(j_grad[row]).max(), 1e-12)
         np.testing.assert_allclose(t_grad[row], j_grad[row],
@@ -198,7 +198,8 @@ def test_autograd_function_matches_twins():
     dout = torch.zeros_like(ref_out)
     dout[:, :5] = w[:, :5]
     ref_g = cs.composite_sorted_bwd_plain(torch.as_tensor(attrs), ids,
-                                          ref_out, cols, dout, 16, TILES_X)
+                                          ref_out, cols, dout, 16, TILES_X,
+                                          3)
     assert torch.equal(out.detach(), ref_out)
     assert torch.equal(a.grad, ref_g)
     c = cs.counts()

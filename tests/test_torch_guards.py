@@ -99,7 +99,7 @@ def test_kernel_wrappers_raise_without_cuda():
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cs.composite_sorted_fwd(attrs, ss, ss, ids, 16, 3, 3, 128)
     with pytest.raises(RuntimeError, match="no kernel for device"):
-        cs.composite_sorted_bwd(attrs, ids, out, ss, out, 16, 3)
+        cs.composite_sorted_bwd(attrs, ids, out, ss, out, 16, 3, 3)
     jac = torch.empty((48, 384), **meta)
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cs.pose_grad_sorted(attrs, jac, ids, out, ss, out, 16, 3)
@@ -111,9 +111,11 @@ def test_kernel_wrappers_raise_without_cuda():
         ce.composite_entries_fwd(attrs, ids, ids, 16, 3)
     with pytest.raises(RuntimeError, match="no kernel for device"):
         ce.composite_entries_bwd(attrs, ids, ids, out, out, 16, 3)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        ce.gather_entries_bwd(attrs, ids.long(), 7)
     assert all(v == 0 for v in cs.counts().values())
     assert all(v == 0 for v in ce.counts().values())
-    assert len(cs.counts()) == 8 and len(ce.counts()) == 4
+    assert len(cs.counts()) == 8 and len(ce.counts()) == 6
 
 
 def test_unknown_backend_raises():

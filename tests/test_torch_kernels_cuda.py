@@ -4,9 +4,11 @@ twin and K2 on the hazard scenes of the windowed backward, and K5 / K6 on
 the entry-binned layout (full frame and frozen binning). K1 and K2 cull
 with an alpha box per survivor and split tiles over warp patches (K2 also
 over blocks): their cases add the 1/8 tile subset with shuffled and
-repeated ids, tiles 16 / 32 / 64, and a cull hazard scene (radius-capped
-survivors, opacity at and just above 1/255 and near 1, near-singular and
-elongated conics, means on and just off patch borders), each with K3 and
+repeated ids (K2 and K3 fold a repeated tile's cotangents into its
+first copy, as their twin does), tiles 16 / 32 / 64, and a cull hazard
+scene (radius-capped survivors, opacity at and just above 1/255 and near
+1, near-singular and elongated conics, means on and just off patch
+borders), each with K3 and
 K4 held against K2's twin on the new K1's columns. K3 also runs at runs of
 1, 4 and 8 tiles a cluster on every window and cull case, ids ascending
 and shuffled, and K6 on the cull hazard scene binned as entries and on a
@@ -25,7 +27,10 @@ kernel_quadform / kernel_bf16 variants of K1-K4 run on the K1 / K2 cases
 (tiles 16 / 32 / 64, the wide grid, the 1/8 subset with repeats, the cull
 hazard scene) against their twins under the same option, K4 twice bit for
 bit, each launch counted under its variant; the autograd Function and the
-frozen-sorted K4 path take the options from their arguments. K1 (sorted),
+frozen-sorted K4 path take the options from their arguments. K2 and K3 in
+the four variants run twice and under a shuffled tile order, bit for bit,
+and on repeated tiles against the folded cotangents; the entry gather's
+backward twice bit for bit. K1 (sorted),
 K5 (entries) and the dense `jnp` backend are held against the dense
 reference `render_dense` at the JAX rasterizer tests' cameras and
 tolerances; the `jnp` backend and LPIPS on the card against their CPU
@@ -39,9 +44,11 @@ conftest.py:
 
 Tolerances (those of chip_smoke.py): colour / alpha 1e-3 absolute, survivor
 counts and columns exact, grads 1e-3 of each row's largest |grad| (the
-kernel sums in another order and adds across tiles with atomics); K4's
-dpose and the K4 path against the K2 chain 1e-3 of the largest |dpose|.
-K4 and K6 use no atomics: two runs are equal bit for bit.
+kernel sums the pixels in another order); K4's dpose and the K4 path
+against the K2 chain 1e-3 of the largest |dpose|. No kernel adds with
+atomics: K2 and K3 (in the four variants), K4, K6 and the entry gather's
+backward give the same bits on every run, and K2 / K3 the same bits for
+every order of the same tile ids.
 """
 import numpy as np
 import pytest
@@ -119,8 +126,9 @@ def test_kernels_match_twins_on_card(tile, seg_cap, n, cuda_device):
         assert int(n_surv.max()) > 0
         dout = torch.randn(ot.shape, generator=gen, device=cuda_device)
         dout[:, 5:] = 0
-        gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, tile, tx)
-        gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, tile, tx)
+        gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, tile, tx, 3)
+        gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, tile, tx,
+                                           3)
         torch.cuda.synchronize()
         for r in range(10):
             scale = float(gt[r].abs().max())
@@ -248,8 +256,8 @@ def test_window_kernel_matches_k2(case, cuda_device):
     dout[:, 5:] = 0
     g3 = cs.composite_sorted_bwd_window(attrs, ss, ids, ok, ck, dout, tile,
                                         tx, 3, seg_cap, group)
-    g2 = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, tile, tx)
-    gt = cs.composite_sorted_bwd_plain(attrs, ids, ok, ck, dout, tile, tx)
+    g2 = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, tile, tx, 3)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ok, ck, dout, tile, tx, 3)
     torch.cuda.synchronize()
     assert float(gt[:10].abs().max()) > 0
     _grads_close(g3, gt)
@@ -329,8 +337,10 @@ def test_entry_kernels_match_twins_on_card(tile, n, max_per_tile,
     torch.cuda.synchronize()
     assert ce.counts() == {"entries_fwd_launches": 1,
                            "entries_bwd_launches": 1,
+                           "entries_gather_launches": 0,
                            "entries_fwd_twin_calls": 0,
-                           "entries_bwd_twin_calls": 0}
+                           "entries_bwd_twin_calls": 0,
+                           "entries_gather_twin_calls": 0}
 
 
 def test_entry_kernels_on_frozen_binning(cuda_device):
@@ -505,10 +515,10 @@ def test_culling_kernels_match_twins(case, cuda_device):
     dout = torch.randn(out_t.shape, generator=gen, device=cuda_device)
     dout[:, 5:] = 0
     g_t = cs.composite_sorted_bwd_plain(attrs, ids, out_t, cols_t, dout,
-                                        tile, tx)
+                                        tile, tx, 3)
     assert float(g_t[:10].abs().max()) > 0
     _grads_close(cs.composite_sorted_bwd(attrs, ids, out_k, cols_k, dout,
-                                         tile, tx), g_t)
+                                         tile, tx, 3), g_t)
     _grads_close(cs.composite_sorted_bwd_window(attrs, ss, ids, out_k,
                                                 cols_k, dout, tile, tx, 3,
                                                 seg_cap, 4), g_t)
@@ -555,7 +565,7 @@ def test_window_kernel_at_run_lengths(case, order, cuda_device,
     dout = torch.randn(out.shape, generator=gen, device=cuda_device)
     dout[:, 5:] = 0
     g_t = cs.composite_sorted_bwd_plain(attrs, ids, out, cols, dout, tile,
-                                        tx)
+                                        tx, 3)
     assert float(g_t[:10].abs().max()) > 0
     for run in (1, 4, 8):
         monkeypatch.setattr(cs, "window_run", lambda *_, r=run: r)
@@ -707,8 +717,8 @@ def test_kernels_at_the_closers_shape(ids_kind, cuda_device):
     _fwd_close(ok, ck, ot, ct)
     dout = torch.randn(ot.shape, generator=gen, device=cuda_device)
     dout[:, 5:] = 0
-    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 16, tx)
-    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx)
+    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 16, tx, 3)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx, 3)
     torch.cuda.synchronize()
     _grads_close(gk, gt)
 
@@ -741,8 +751,8 @@ def test_kernels_at_the_tum_shape(ids_kind, cuda_device):
     _fwd_close(ok, ck, ot, ct)
     dout = torch.randn(ot.shape, generator=gen, device=cuda_device)
     dout[:, 5:] = 0
-    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 32, tx)
-    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 32, tx)
+    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 32, tx, 3)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 32, tx, 3)
     torch.cuda.synchronize()
     _grads_close(gk, gt)
 
@@ -771,8 +781,8 @@ def test_kernels_at_the_global_shape(n, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(13)
     dout = torch.randn(ot.shape, generator=gen, device=cuda_device)
     dout[:, 5:] = 0
-    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 16, tx)
-    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx)
+    gk = cs.composite_sorted_bwd(attrs, ids, ok, ck, dout, 16, tx, 3)
+    gt = cs.composite_sorted_bwd_plain(attrs, ids, ot, ct, dout, 16, tx, 3)
     torch.cuda.synchronize()
     _grads_close(gk, gt)
     t = _scene(n, cuda_device, 11)
@@ -840,10 +850,10 @@ def test_kernel_variants_match_twins(case, variant, cuda_device):
     dout = torch.randn(out_t.shape, generator=gen, device=cuda_device)
     dout[:, 5:] = 0
     g_t = cs.composite_sorted_bwd_plain(attrs, ids, out_t, cols_t, dout,
-                                        tile, tx, quad)
+                                        tile, tx, 3, quad)
     assert float(g_t[:10].abs().max()) > 0
     _grads_close(cs.composite_sorted_bwd(attrs, ids, out_k, cols_k, dout,
-                                         tile, tx, quad), g_t)
+                                         tile, tx, 3, quad), g_t)
     _grads_close(cs.composite_sorted_bwd_window(attrs, ss, ids, out_k,
                                                 cols_k, dout, tile, tx, 3,
                                                 seg_cap, 4, quad), g_t)
@@ -879,7 +889,7 @@ def test_variant_paths_launch_their_kernels(variant, cuda_device):
                               generator=torch.Generator(
                                   device=cuda_device).manual_seed(3))
     g_t = cs.composite_sorted_bwd_plain(lay, ids, out_t, cols_t, dout, 32,
-                                        tx, quad)
+                                        tx, 3, quad)
     for window in (False, True):
         a = attrs.clone().requires_grad_(True)
         cs.reset_counts()
@@ -908,6 +918,121 @@ def test_variant_paths_launch_their_kernels(variant, cuda_device):
     vc = cs.variant_counts()
     assert vc["K1"][variant] == 1 and vc["K4"][variant] == 1, vc
     assert bool(torch.isfinite(d4).all()) and float(d4.abs().max()) > 0
+
+
+DETERMINISM_CASES = ("t16_full", "t32_wide_full", "hazard_t32_eighth",
+                     "hazard_t64")
+
+
+@pytest.mark.parametrize("variant", ["default", "quadform", "bf16",
+                                     "quadform_bf16"])
+@pytest.mark.parametrize("case", DETERMINISM_CASES)
+def test_backward_kernels_are_deterministic(case, variant, cuda_device):
+    """K2 and K3 in each variant: twice bit for bit, and the same bits on a
+    shuffled copy of the same tile ids (each tile with its own cotangent)
+    as on the ascending copy; K3 within K2's tolerance of K2."""
+    quad, bf16 = "quadform" in variant, "bf16" in variant
+    tile, seg_cap, (attrs, ss, sc, tx, num_tiles) = _case_inputs(
+        case, cuda_device)
+    if bf16:
+        attrs = cs.to_bf16_layout(attrs)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    ids = torch.arange(num_tiles, dtype=torch.int32, device=cuda_device)
+    if K12_CASES[case][4] == "eighth":
+        ids = torch.sort(torch.randperm(
+            num_tiles, generator=gen, device=cuda_device)[
+                : max(2, round(num_tiles / 8))]).values.to(torch.int32)
+    shuffled = ids[torch.randperm(ids.shape[0], generator=gen,
+                                  device=cuda_device)]
+    table = torch.randn((num_tiles, 8, tile * tile), generator=gen,
+                        device=cuda_device)
+    table[:, 5:] = 0
+    got = {}
+    for label, i in (("ascending", ids), ("shuffled", shuffled)):
+        out, cols = cs.composite_sorted_fwd(attrs, ss, sc, i, tile, tx, 3,
+                                            seg_cap, quad)
+        dout = table[i.long()].contiguous()
+        g2 = [cs.composite_sorted_bwd(attrs, i, out, cols, dout, tile, tx,
+                                      3, quad) for _ in range(2)]
+        g3 = [cs.composite_sorted_bwd_window(attrs, ss, i, out, cols, dout,
+                                             tile, tx, 3, seg_cap, 8, quad)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(g2[0], g2[1]) and torch.equal(g3[0], g3[1])
+        assert float(g2[0][:10].abs().max()) > 0
+        _grads_close(g3[0], g2[0])
+        got[label] = (g2[0], g3[0])
+    assert torch.equal(got["ascending"][0], got["shuffled"][0])
+    assert torch.equal(got["ascending"][1], got["shuffled"][1])
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_repeated_tiles_fold_on_card(tile, cuda_device):
+    """K2 and K3 on ids that hold tiles twice and three times: the same bits
+    as on the distinct tiles with the copies' cotangents added in row order
+    (fold_repeats), and within K2's tolerance of the twin."""
+    seg_cap = 1024 if tile == 32 else 256
+    attrs, ss, sc, tx, _ = _inputs(tile, seg_cap, 1500, cuda_device)
+    ids = torch.tensor([3, 0, 3, 5, 1, 3, 5], dtype=torch.int32,
+                       device=cuda_device)
+    out, cols = cs.composite_sorted_fwd(attrs, ss, sc, ids, tile, tx, 3,
+                                        seg_cap)
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    dout = torch.randn(out.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0
+    keep = torch.tensor([0, 1, 3, 4], device=cuda_device)
+    folded = dout[keep].clone()
+    folded[0] = dout[0] + dout[2] + dout[5]
+    folded[2] = dout[3] + dout[6]
+    for window in (False, True):
+        def bwd(i, o, c, d):
+            if window:
+                return cs.composite_sorted_bwd_window(
+                    attrs, ss, i, o, c, d, tile, tx, 3, seg_cap, 8)
+            return cs.composite_sorted_bwd(attrs, i, o, c, d, tile, tx, 3)
+        got = bwd(ids, out, cols, dout)
+        want = bwd(ids[keep], out[keep], cols[keep], folded)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), window
+        _grads_close(got, cs.composite_sorted_bwd_plain(
+            attrs, ids, out, cols, dout, tile, tx, 3))
+
+
+def test_gather_backward_kernel_is_deterministic(cuda_device):
+    """The entry gather's backward on the card: twice bit for bit, equal to
+    its plain version on the same tensors (the same order of additions),
+    within 1e-6 of index_add_ in the gaussian columns, the sentinel column
+    zero; the render's backward on the entry backend launches it."""
+    t = _scene(1500, cuda_device, 4)
+    cfg = RasterConfig(tile=16, dup_side=3, max_per_tile=8192,
+                       backend="pallas")
+    proj = project_gaussians(t["means"], t["q"], t["ls"], t["op"],
+                             torch.eye(4, device=cuda_device), CAM, cfg)
+    slot, _, _ = R._build_slots(proj, CAM, cfg)
+    n_cols = t["means"].shape[0] + 1
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    g = torch.randn((16, slot.shape[0]), generator=gen, device=cuda_device)
+    ce.reset_counts()
+    d1 = ce.gather_entries_bwd(g, slot, n_cols)
+    d2 = ce.gather_entries_bwd(g, slot, n_cols)
+    plain = ce.gather_entries_bwd_plain(g, slot, n_cols)
+    ref = torch.zeros_like(d1).index_add_(1, slot, g)
+    torch.cuda.synchronize()
+    assert ce.counts()["entries_gather_launches"] == 2
+    assert torch.equal(d1, d2) and torch.equal(d1, plain)
+    scale = float(ref[:, :-1].abs().max())
+    assert float((d1[:, :-1] - ref[:, :-1]).abs().max()) <= 1e-6 * scale
+    assert float(d1[:, -1].abs().max()) == 0.0
+    means = t["means"].clone().requires_grad_(True)
+    ce.reset_counts()
+    out = R.render(means, t["q"], t["ls"], t["op"], t["col"],
+                   torch.eye(4, device=cuda_device), CAM, cfg)
+    out.color.sum().backward()
+    torch.cuda.synchronize()
+    c = ce.counts()
+    assert c["entries_gather_launches"] == 1
+    assert c["entries_gather_twin_calls"] == 0
+    assert float(means.grad.abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -47,4 +47,4 @@ def test_cpu_tensors_take_the_k2_twin():
             c["window_launches"]) == (1, 0, 0)
     assert float(g[:10].abs().max()) > 0
     assert torch.equal(g, cs.composite_sorted_bwd_plain(
-        attrs, ids, out, cols, dout, 16, 4))
+        attrs, ids, out, cols, dout, 16, 4, 3))
