@@ -1,0 +1,10 @@
+"""data_wait_ms: the mean host-clock span (ms) of the reader's
+`frame` call, a frame, over
+the window's frames outside the instrumented ones (the profiled frames
+and the two before them); nothing where the span
+never ran."""
+
+
+def read(r):
+    v = r.summary["spans"]["data_wait"]
+    return sum(v) / len(v) if v else None

@@ -1,0 +1,10 @@
+"""map_ms: the mean host-clock span (ms) of
+`GaussianSLAM.map_frame`, a mapped frame, over
+the window's frames outside the instrumented ones (the profiled frames
+and the two before them); nothing where the span
+never ran."""
+
+
+def read(r):
+    v = r.summary["spans"]["map"]
+    return sum(v) / len(v) if v else None
