@@ -1656,7 +1656,8 @@ def phase_c2f(n_frames: int, out_dir: str):
             "vo_wait_ms": _mean_log(out_dir, "tracking", "vo_wait_ms")}
     emit({**line, "ok": ok, "odometer_wins": wins,
           "submaps": gslam.submap_id + 1, "warm_started": gslam._warm_inited,
-          "vo_keyframes": vo["n_keyframes"], "vo_dt_ms": vo["mean_dt_ms"]})
+          "vo_keyframes": vo["n_keyframes"],
+          "vo_dt_host_ms": vo["mean_dt_ms"]})
     if not ok:
         raise SystemExit("c2f check failed")
     return line
@@ -1894,7 +1895,8 @@ def phase_mesh(n_frames: int, out_dir: str, c2f_line):
 def _closer_overlap(out_dir: str, latencies) -> dict:
     """The SLAM loop's tracking and mapping ms a frame (log.jsonl), split by
     whether a loop-closer pass was in flight (its wall-clock span from
-    `t_start` and `total_ms`) while the stage ran."""
+    `t_start` and `total_ms`) while the stage ran. Tracking is the `track`
+    stage less the VO's step or wait inside it."""
     import numpy as np
 
     spans = [(e["t_start"], e["t_start"] + e["total_ms"] / 1e3)
@@ -1903,14 +1905,15 @@ def _closer_overlap(out_dir: str, latencies) -> dict:
     with open(os.path.join(out_dir, "log.jsonl")) as f:
         for line in f:
             r = json.loads(line)
-            key = {"tracking": ("track", "track_dispatch_ms"),
+            key = {"tracking": ("track", "track_frame_ms"),
                    "mapping": ("map", "map_ms")}.get(r.get("kind"))
             if key is None or key[1] not in r:
                 continue
             t1 = r["t"]
             t0 = t1 - r[key[1]] / 1e3
             busy = any(t0 < e and t1 > s for s, e in spans)
-            split[(key[0], busy)].append(r[key[1]])
+            split[(key[0], busy)].append(r[key[1]]
+                                         - r.get("vo_wait_ms", 0.0))
     return {f"{k}_ms_closer_{'busy' if b else 'idle'}":
             {"mean": float(np.mean(v)) if v else None, "frames": len(v)}
             for (k, b), v in split.items()}
@@ -2716,7 +2719,7 @@ def phase_vo_cpu(n_frames: int, out_dir: str, c2f_line):
           "vo_steps_on_worker": sum(n.startswith("eags-vo")
                                     for n, _ in steps),
           "vo_keyframes": vo["n_keyframes"], "vo_ms": vo["mean_track_ms"],
-          "vo_dt_ms": vo["mean_dt_ms"],
+          "vo_dt_host_ms": vo["mean_dt_ms"],
           "vo_wait_ms": _mean_log(out_dir, "tracking", "vo_wait_ms"),
           "c2f_same_call": None if c2f_line is None else {
               k: c2f_line[k] for k in ("fps", "track_ms", "map_ms", "vo_ms",

@@ -34,9 +34,9 @@ import numpy as np
 import torch
 
 from ..core.camera import Camera
-from ..ops.composite_sorted import counting_as
 from ..ops.rasterizer import RasterConfig
 from ..slam.submap import Submap
+from ..utils.tracing import counting_as
 from .descriptor import GlobalDesc
 from .pgo import PoseGraph, optimize_pose_graph, scalar_info
 from .solver import (RegistrationResult, gaussian_registration,

@@ -92,7 +92,6 @@ closer, on its own CUDA stream and thread) counts apart under a tag
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -104,6 +103,9 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..utils.tracing import (MAIN, LaunchCounts, count_tag,  # noqa: F401
+                             counting_as)
 
 NCH = 16
 CHUNK = 128
@@ -123,64 +125,8 @@ NG = 10                      # gradient rows: attrs rows 0-9
 last_window_run = 0          # the run K3's last launch took
 
 # ---------------------------------------------------------------------------
-# Launch counts, kept apart by tag
+# Launch counts, kept apart by tag (the tags live with the tracer)
 # ---------------------------------------------------------------------------
-
-MAIN = "main"
-_count_lock = threading.Lock()
-_stream_tags = {}            # CUDA stream handle -> tag
-_local = threading.local()   # .tag: this thread's tag (CPU twins)
-
-
-def count_tag(device: torch.device) -> str:
-    """The tag a launch on `device` counts under: the current CUDA stream's
-    (a backward runs on its forward's stream, in the autograd engine's
-    thread) on the card, this thread's on the CPU, else MAIN."""
-    if device.type == "cuda":
-        tag = _stream_tags.get(torch.cuda.current_stream(device).cuda_stream)
-    else:
-        tag = getattr(_local, "tag", None)
-    return MAIN if tag is None else tag
-
-
-@contextlib.contextmanager
-def counting_as(tag: str, stream=None):
-    """Count the launches made on `stream` and the twin calls of this
-    thread under `tag`, apart from the main path's counts."""
-    prev = getattr(_local, "tag", None)
-    _local.tag = tag
-    if stream is not None:
-        _stream_tags[stream.cuda_stream] = tag
-    try:
-        yield
-    finally:
-        _local.tag = prev
-        if stream is not None:
-            _stream_tags.pop(stream.cuda_stream, None)
-
-
-class LaunchCounts:
-    """Counters of `keys`, one set per tag."""
-
-    def __init__(self, keys):
-        self.keys = tuple(keys)
-        self._by_tag = {}
-
-    def reset(self) -> None:
-        with _count_lock:
-            self._by_tag = {}
-
-    def bump(self, key: str, device: torch.device) -> None:
-        tag = count_tag(device)
-        with _count_lock:
-            d = self._by_tag.setdefault(tag, dict.fromkeys(self.keys, 0))
-            d[key] += 1
-
-    def get(self, tag: str = MAIN) -> dict:
-        with _count_lock:
-            return dict(self._by_tag.get(tag)
-                        or dict.fromkeys(self.keys, 0))
-
 
 _counts = LaunchCounts((
     "fwd_launches", "bwd_launches", "window_launches", "pose_launches",

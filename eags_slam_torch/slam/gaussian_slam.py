@@ -48,6 +48,14 @@ live pose array (timed as the `lc_drain` stage). The loop syncs only its
 own stream. `bench_deadline_ts` (a wall-clock time) stops the loop
 cleanly between frames.
 
+The loop's stages (`frame` around each frame; `data_wait`, `vo` or
+`vo.wait`, `track` with the inline VO inside it, `boundary`, `map`,
+`lc_drain`) are the tracer's always-timed spans (`utils/tracing.py`
+`Stages`): the report's stage times and the logs' `data_wait_ms`,
+`vo_wait_ms`, `track_frame_ms` and `map_ms` come from them, and while the
+tracer records they are spans with the tracker's, mapper's and VO's
+inside.
+
 The run's evaluation, the heavy stages (`evaluation.eval_mesh`,
 `eval_global`) included, runs after the loop (`evaluation/evaluator.py`,
 driven by `run_slam`, `run_evaluation` and `bench`).
@@ -96,6 +104,7 @@ from ..core.camera import Camera
 from ..datasets import get_dataset
 from ..parallel import mesh as P
 from ..ops.rasterizer import RasterConfig, apply_rcfg_env, check_config
+from ..utils import tracing
 from ..vo.system import EdgeVO, VOConfig
 from . import mapper as M
 from . import tracker as TT
@@ -318,10 +327,7 @@ class GaussianSLAM:
         self._prev_saved_anchor: Optional[int] = None
         self.submap_kf_frame_ids: List[int] = []
         self.submap_paths: List[str] = []
-        self.track_times: List[float] = []
-        self.map_times: List[float] = []
-        self.stage_s: Dict[str, float] = {"data_wait": 0.0, "boundary": 0.0,
-                                          "lc_drain": 0.0}
+        self.stages = tracing.Stages()     # the loop's stages
         # The seeding edges of each mapped frame: the VO's, or Canny's.
         self.seed_edges = {"vo": 0, "canny": 0}
         # Last, so that an error above leaves no thread behind.
@@ -509,10 +515,12 @@ class GaussianSLAM:
         pending, self._vo_next = self._vo_next, None
         if pending is not None and pending[0] == frame_id:
             self._vo_pipelined += 1
-            return pending[1].result()
-        rgb8, depth = self._vo_inputs(frame_id)
-        return self.odometer.step(rgb8, depth,
-                                  self.dataset.timestamps[frame_id])
+            with self.stages.span("vo.wait"):
+                return pending[1].result()
+        with self.stages.span("vo"):
+            rgb8, depth = self._vo_inputs(frame_id)
+            return self.odometer.step(rgb8, depth,
+                                      self.dataset.timestamps[frame_id])
 
     def _submit_vo_next(self, frame_id: int, n: int):
         """Submit frame_id + 1's VO step to the worker (a VO on the CPU
@@ -539,19 +547,20 @@ class GaussianSLAM:
                    if self.draws is not None else None)
         edges = self._vo_edges(frame_id)
         self.seed_edges["canny" if edges is None else "vo"] += 1
-        rows, row_valid, n_valid, seeding_mask = M.seed_rows(
-            self.state.params, self.state.alive, gt_color, gt_depth, c2w32,
-            w2c32, edges, self.cam, self.rcfg, self.mcfg, seed_as_new,
-            edges is None, True,
-            self.mcfg.outlier_removal and not seed_as_new,
-            generator=self._generator(key), gumbels=gumbels)
-        if self.mesh is not None:
-            rows, row_valid, n_valid = self._replicate_rows(rows, row_valid,
-                                                            n_valid)
-        if self._n_alive + n_valid > self.state.capacity:
-            self.state = G.expand_state(
-                self.state, G.bucket_for(self._n_alive + n_valid,
-                                         self.capacity))
+        with tracing.span("map.seed"):
+            rows, row_valid, n_valid, seeding_mask = M.seed_rows(
+                self.state.params, self.state.alive, gt_color, gt_depth,
+                c2w32, w2c32, edges, self.cam, self.rcfg, self.mcfg,
+                seed_as_new, edges is None, True,
+                self.mcfg.outlier_removal and not seed_as_new,
+                generator=self._generator(key), gumbels=gumbels)
+            if self.mesh is not None:
+                rows, row_valid, n_valid = self._replicate_rows(
+                    rows, row_valid, n_valid)
+            if self._n_alive + n_valid > self.state.capacity:
+                self.state = G.expand_state(
+                    self.state, G.bucket_for(self._n_alive + n_valid,
+                                             self.capacity))
         exposure = torch.as_tensor(self.exposures_ab[frame_id],
                                    dtype=torch.float32, device=self.device)
         M.push_keyframe(self.kfs, 0, gt_color, gt_depth, w2c32, exposure)
@@ -603,6 +612,7 @@ class GaussianSLAM:
                              alive=self.state.alive)
             self.logger.vis_mapping(frame_id, out.color, out.depth, gt_color,
                                     gt_depth, seeding_mask)
+        tracing.count("map.iters", run_half + run_full)
         return {"n_added": int(n_added), "n_alive": self._n_alive,
                 "final_loss": float(losses[-1, 0]),
                 "iterations": run_half + run_full,
@@ -640,27 +650,14 @@ class GaussianSLAM:
             self.estimated_c2ws[start:e] = corr @ self.estimated_c2ws[start:e]
         self._lc_ranges_applied += len(corrs)
 
-    # ------------------------------------------------------------------
-    def run(self) -> Dict:
-        n = len(self.dataset)
-        if not self.active:
-            return {"frames": 0, "idle": True}
-        P.reset_collective_counts()
-        t0 = time.perf_counter()
-        deadline_ts = float(self.config.get("bench_deadline_ts", 0) or 0)
-        frames_run = n
-        for frame_id in range(n):
-            if deadline_ts and time.time() > deadline_ts:
-                print(f"deadline: stopping cleanly after {frame_id}/{n} "
-                      "frames", flush=True)
-                frames_run = frame_id
-                break
-            t_wait = time.perf_counter()
+    def _run_frame(self, frame_id: int, n: int):
+        """One frame of the loop: its stages are the tracer's spans."""
+        st = self.stages
+        with st.span("data_wait"):
             gt_color, gt_depth = self.dataset.frame(frame_id)
-            data_wait = time.perf_counter() - t_wait
-            self.stage_s["data_wait"] += data_wait
-            gt_pose = np.asarray(self.dataset.poses[frame_id], np.float64)
-            t_track = time.perf_counter()
+        gt_pose = np.asarray(self.dataset.poses[frame_id], np.float64)
+        stats = None
+        with st.span("track"):
             if frame_id in (0, 1) or self.gt_camera:
                 self.estimated_c2ws[frame_id] = gt_pose
                 if self.odometer is not None:
@@ -678,11 +675,10 @@ class GaussianSLAM:
                 vo_ms = vo_wait_ms = None
                 if self.odometer is not None:
                     # Inline: the whole step; pipelined: the wait for it.
-                    t_vo = time.perf_counter()
                     vo_c2w = self._vo_step(frame_id)
-                    vo_wait_ms = 1e3 * (time.perf_counter() - t_vo)
+                    vo_wait_ms = 1e3 * st.last
                     # The step's own time, read before step(f+1) starts.
-                    vo_ms = 1e3 * self.odometer.track_times[-1]
+                    vo_ms = 1e3 * self.odometer.stages.last_s["vo.step"]
                     if self._vo_decoupled:
                         if frame_id >= 3 and self._vo_last is not None:
                             candidates["odometer"] = (
@@ -707,45 +703,61 @@ class GaussianSLAM:
                 if vo_ms is not None:
                     stats["vo_ms"] = vo_ms
                     stats["vo_wait_ms"] = vo_wait_ms
-                stats["data_wait_ms"] = 1e3 * data_wait
-                self.logger.log_tracking(
-                    frame_id, {k: float(v) for k, v in stats.items()})
-                if self.tracker.last_per_iter is not None:
-                    self.logger.log("track_iters", {
-                        "frame_id": frame_id,
-                        "names": list(TT.DEBUG_ITER_NAMES),
-                        "iters": np.round(self.tracker.last_per_iter,
-                                          6).tolist()})
+                stats["data_wait_ms"] = 1e3 * st.last_s["data_wait"]
             self._sync()
-            self.track_times.append(time.perf_counter() - t_track)
+        if stats is not None:
+            stats["track_frame_ms"] = 1e3 * st.last_s["track"]
+            self.logger.log_tracking(
+                frame_id, {k: float(v) for k, v in stats.items()})
+            if self.tracker.last_per_iter is not None:
+                self.logger.log("track_iters", {
+                    "frame_id": frame_id,
+                    "names": list(TT.DEBUG_ITER_NAMES),
+                    "iters": np.round(self.tracker.last_per_iter,
+                                      6).tolist()})
 
-            is_new_submap = False
-            if frame_id != 0 and self.should_start_new_submap(frame_id):
-                t_b = time.perf_counter()
+        is_new_submap = False
+        if frame_id != 0 and self.should_start_new_submap(frame_id):
+            with st.span("boundary"):
                 path = self.save_current_submap()
                 if self.loop_closer is not None and path is not None:
                     self.loop_closer.submit(self.submap_id, frame_id,
                                             self.estimated_c2ws)
                 self.start_new_submap(frame_id)
-                is_new_submap = True
-                self.stage_s["boundary"] += time.perf_counter() - t_b
+            is_new_submap = True
 
-            if frame_id in self.mapping_frame_ids or is_new_submap:
-                t_map = time.perf_counter()
+        if frame_id in self.mapping_frame_ids or is_new_submap:
+            with st.span("map"):
                 stats = self.map_frame(frame_id, gt_color, gt_depth,
                                        is_new_submap or frame_id == 0)
                 self._sync()
-                self.map_times.append(time.perf_counter() - t_map)
-                stats["map_ms"] = 1e3 * self.map_times[-1]
-                stats["is_new"] = bool(is_new_submap or frame_id == 0)
-                self.logger.log_mapping(frame_id, stats)
+            stats["map_ms"] = 1e3 * st.last_s["map"]
+            stats["is_new"] = bool(is_new_submap or frame_id == 0)
+            self.logger.log_mapping(frame_id, stats)
 
-            if self._lc_enabled:
-                t_d = time.perf_counter()
+        if self._lc_enabled:
+            with st.span("lc_drain"):
                 if self.loop_closer is not None:
                     self.loop_closer.check_futures()
                 self._apply_lc_corrections()
-                self.stage_s["lc_drain"] += time.perf_counter() - t_d
+
+    # ------------------------------------------------------------------
+    def run(self) -> Dict:
+        n = len(self.dataset)
+        if not self.active:
+            return {"frames": 0, "idle": True}
+        P.reset_collective_counts()
+        t0 = time.perf_counter()
+        deadline_ts = float(self.config.get("bench_deadline_ts", 0) or 0)
+        frames_run = n
+        for frame_id in range(n):
+            if deadline_ts and time.time() > deadline_ts:
+                print(f"deadline: stopping cleanly after {frame_id}/{n} "
+                      "frames", flush=True)
+                frames_run = frame_id
+                break
+            with tracing.frame(frame_id):
+                self._run_frame(frame_id, n)
 
         path = self.save_current_submap()
         if self.loop_closer is not None:
@@ -759,23 +771,20 @@ class GaussianSLAM:
         if self.is_main:
             np.savez(os.path.join(self.output_path, "estimated_c2w.npz"),
                      c2ws=self.estimated_c2ws, exposures=self.exposures_ab)
+        st = self.stages
         report = {
             "frames": frames_run,
             "fps": frames_run / total,
             "total_s": total,
-            "track_ms_avg": 1e3 * float(np.mean(self.track_times)),
-            "map_ms_avg": 1e3 * float(np.mean(self.map_times))
-            if self.map_times else 0,
-            "map_frames": len(self.map_times),
-            "data_wait_ms_avg": 1e3 * self.stage_s["data_wait"]
+            "track_ms_avg": st.mean_ms("track"),
+            "map_ms_avg": st.mean_ms("map"),
+            "map_frames": st.count["map"],
+            "data_wait_ms_avg": 1e3 * st.total_s["data_wait"]
             / max(frames_run, 1),
             "data": self.dataset.report(),
             "seed_edges": dict(self.seed_edges),
-            "stage_totals_s": {
-                "track": round(float(np.sum(self.track_times)), 2),
-                "map": round(float(np.sum(self.map_times)), 2),
-                **{k: round(v, 2) for k, v in self.stage_s.items()},
-            },
+            "stage_totals_s": {k: round(st.total_s[k], 2) for k in (
+                "track", "map", "data_wait", "boundary", "lc_drain")},
             "tracker": self.tracker.report(),
         }
         if self.mesh is not None:

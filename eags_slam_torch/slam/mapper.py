@@ -50,7 +50,7 @@ from ..ops.rasterizer import (RasterConfig, backend_of, gt_tiles, render,
                               render_sorted_resident,
                               render_sorted_resident_tiles, render_tiles,
                               sorted_layout, tile_sums)
-from ..utils import optim
+from ..utils import optim, tracing
 
 
 class MapperConfig(NamedTuple):
@@ -425,36 +425,42 @@ def _optimize_plain(state: GaussianState, kfs: KeyframeBatch, iterations,
     losses = np.zeros((iterations, 3), np.float32)
     it = 0
     while it < iterations and not book.stopped:
-        leaf = {k: v.detach().requires_grad_(True) for k, v in opt.items()}
-        if mesh_step is not None:
-            vals, grads = mesh_step(leaf, alive, it)
-        else:
-            kidx = int(draw_kf(p_kf, it))
-            if draw_tiles is None:
-                out = render(leaf["xyz"], leaf["quats"], leaf["log_scales"],
-                             leaf["opacity_logits"], colors, kfs.w2c[kidx],
-                             cam, rcfg, alive=alive)
-                total, cl, dl, _, _ = _map_loss(out, kfs, kidx,
-                                                leaf["log_scales"], alive,
-                                                mcfg.lambda_dssim)
+        with tracing.span("map.iter"):
+            leaf = {k: v.detach().requires_grad_(True)
+                    for k, v in opt.items()}
+            if mesh_step is not None:
+                vals, grads = mesh_step(leaf, alive, it)
             else:
-                tile_sel = draw_tiles(it)
-                out = render_tiles(leaf["xyz"], leaf["quats"],
-                                   leaf["log_scales"], leaf["opacity_logits"],
-                                   colors, kfs.w2c[kidx], tile_sel, cam, rcfg,
-                                   alive=alive)
-                total, cl, dl = _tile_loss(out, kfs, kidx, tile_sel, cam,
-                                           rcfg.tile, leaf["log_scales"],
-                                           alive, mcfg.lambda_dssim)
-            grads = _masked_grads(leaf, total, alive)
-            vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
-        vals = vals.cpu().numpy().astype(np.float32)
-        new_opt, new_adam = optim.adam_update(
-            adam, {k: v.detach() for k, v in leaf.items()}, grads, lr_tree)
-        book, opt, adam, alive = book_step(book, it, vals[0], new_opt,
-                                           new_adam, alive)
-        losses[it] = vals
-        it += 1
+                with tracing.span("map.draw"):
+                    kidx = int(draw_kf(p_kf, it))
+                if draw_tiles is None:
+                    out = render(leaf["xyz"], leaf["quats"],
+                                 leaf["log_scales"], leaf["opacity_logits"],
+                                 colors, kfs.w2c[kidx], cam, rcfg,
+                                 alive=alive)
+                    total, cl, dl, _, _ = _map_loss(out, kfs, kidx,
+                                                    leaf["log_scales"], alive,
+                                                    mcfg.lambda_dssim)
+                else:
+                    tile_sel = draw_tiles(it)
+                    out = render_tiles(leaf["xyz"], leaf["quats"],
+                                       leaf["log_scales"],
+                                       leaf["opacity_logits"], colors,
+                                       kfs.w2c[kidx], tile_sel, cam, rcfg,
+                                       alive=alive)
+                    total, cl, dl = _tile_loss(out, kfs, kidx, tile_sel, cam,
+                                               rcfg.tile, leaf["log_scales"],
+                                               alive, mcfg.lambda_dssim)
+                grads = _masked_grads(leaf, total, alive)
+                vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
+            with tracing.span("map.readback"):
+                vals = vals.cpu().numpy().astype(np.float32)
+            new_opt, new_adam = optim.adam_update(
+                adam, {k: v.detach() for k, v in leaf.items()}, grads, lr_tree)
+            book, opt, adam, alive = book_step(book, it, vals[0], new_opt,
+                                               new_adam, alive)
+            losses[it] = vals
+            it += 1
     return opt, adam, alive, book, it, losses
 
 
@@ -538,28 +544,32 @@ def _optimize_resident(state: GaussianState, kfs: KeyframeBatch, iterations,
 
     def step(it, opt, adam, alive, book, kidx, seg_start, seg_cnt,
              tile_sel=None):
-        leaf = {k: v.detach().requires_grad_(True) for k, v in opt.items()}
-        if tile_sel is None:
-            total, cl, dl, res = loss_full(leaf, f_dc, alive, kidx,
-                                           seg_start, seg_cnt)
-        else:
-            total, cl, dl = loss_sub(leaf, f_dc, alive, kidx, seg_start,
-                                     seg_cnt, tile_sel)
-            res = None
-        grads = _masked_grads(leaf, total, alive)
-        vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
-        vals = vals.cpu().numpy().astype(np.float32)
-        new_opt, new_adam = optim.adam_update(
-            adam, {k: v.detach() for k, v in leaf.items()}, grads, lr_tree)
-        tot_for_book = vals[0] if tile_sel is None else book.ema
-        book, opt, adam, alive = book_step(book, it, tot_for_book, new_opt,
-                                           new_adam, alive)
-        losses[it] = vals
-        return opt, adam, alive, book, res
+        with tracing.span("map.iter"):
+            leaf = {k: v.detach().requires_grad_(True)
+                    for k, v in opt.items()}
+            if tile_sel is None:
+                total, cl, dl, res = loss_full(leaf, f_dc, alive, kidx,
+                                               seg_start, seg_cnt)
+            else:
+                total, cl, dl = loss_sub(leaf, f_dc, alive, kidx, seg_start,
+                                         seg_cnt, tile_sel)
+                res = None
+            grads = _masked_grads(leaf, total, alive)
+            vals = torch.stack([total.detach(), cl.detach(), dl.detach()])
+            with tracing.span("map.readback"):
+                vals = vals.cpu().numpy().astype(np.float32)
+            new_opt, new_adam = optim.adam_update(
+                adam, {k: v.detach() for k, v in leaf.items()}, grads, lr_tree)
+            tot_for_book = vals[0] if tile_sel is None else book.ema
+            book, opt, adam, alive = book_step(book, it, tot_for_book, new_opt,
+                                               new_adam, alive)
+            losses[it] = vals
+            return opt, adam, alive, book, res
 
     while it < iterations and not book.stopped:
         it0 = it
-        kidx = int(draw_kf(p_kf, it0))
+        with tracing.span("map.draw"):
+            kidx = int(draw_kf(p_kf, it0))
         order, seg_start, seg_cnt = sorted_layout(
             opt["xyz"], opt["quats"], opt["log_scales"],
             opt["opacity_logits"], kfs.w2c[kidx], cam, rcfg, alive=alive)

@@ -22,7 +22,6 @@ no K4).
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -37,7 +36,7 @@ from ..ops.rasterizer import (RasterConfig, backend_of, freeze_binning,
                               render_frozen_sorted, render_frozen_sorted_pose,
                               render_frozen_sorted_tiles,
                               render_frozen_sorted_tiles_pose, tile_sums)
-from ..utils import optim
+from ..utils import optim, tracing
 
 
 class TrackerConfig(NamedTuple):
@@ -217,46 +216,50 @@ def _refine(loss_fn, init_rel, num_iters: int, exposure0,
                                             f32(np.inf), 0)
     best_pose = {k: v.detach().clone() for k, v in pose.items()}
     while it < num_iters and not done:
-        leaf = {k: v.detach().requires_grad_(True) for k, v in pose.items()}
-        total, (cl, dl) = loss_fn(leaf)
-        gq, gt, ge = torch.autograd.grad(
-            total, [leaf["quat"], leaf["trans"], leaf["exposure"]],
-            allow_unused=True)
-        grads = {"quat": gq, "trans": gt,
-                 "exposure": ge if ge is not None
-                 else torch.zeros_like(leaf["exposure"])}
-        vals = torch.stack([total.detach(), cl.detach(), dl.detach()]).cpu()
-        total_f, cl_f, dl_f = (f32(v) for v in vals.numpy())
+        with tracing.span("track.iter"):
+            leaf = {k: v.detach().requires_grad_(True)
+                    for k, v in pose.items()}
+            total, (cl, dl) = loss_fn(leaf)
+            gq, gt, ge = torch.autograd.grad(
+                total, [leaf["quat"], leaf["trans"], leaf["exposure"]],
+                allow_unused=True)
+            grads = {"quat": gq, "trans": gt,
+                     "exposure": ge if ge is not None
+                     else torch.zeros_like(leaf["exposure"])}
+            with tracing.span("track.readback"):
+                vals = torch.stack([total.detach(), cl.detach(),
+                                    dl.detach()]).cpu()
+            total_f, cl_f, dl_f = (f32(v) for v in vals.numpy())
 
-        with np.errstate(invalid="ignore"):   # inf - inf: not flat
-            flat = abs(f32(total_f - prev_loss)) < tcfg.early_stop_thre
-        break_cnt = break_cnt + 1 if flat else 0
-        done = break_cnt > tcfg.early_stop_cnt
-        if tcfg.stale_best_cnt > 0:
-            done = done or (it - best_it > tcfg.stale_best_cnt)
-        lr = plateau.lr_scale
-        lr_tree = {"quat": tcfg.cam_rot_lr * lr,
-                   "trans": tcfg.cam_trans_lr * lr,
-                   "exposure": tcfg.exposure_lr * lr}
-        old = {k: v.detach() for k, v in leaf.items()}
-        new_pose, adam = optim.adam_update(adam, old, grads, lr_tree,
-                                           amsgrad=True)
-        new_pose["quat"] = new_pose["quat"] / torch.clamp(
-            torch.linalg.norm(new_pose["quat"]), min=1e-12)
-        plateau = optim.plateau_update(plateau, total_f,
-                                       tcfg.plateau_patience,
-                                       tcfg.plateau_factor)
-        if total_f < best_loss:
-            best_pose = old
-            best_cl, best_dl, best_it = cl_f, dl_f, it
-        if record is not None:
-            record[it, :5] = (total_f, best_cl, best_dl, lr, 1.0)
-            record[it, 5:9] = old["quat"].cpu().numpy()
-            record[it, 9:] = old["trans"].cpu().numpy()
-        best_loss = min(total_f, best_loss)
-        prev_loss = total_f
-        pose = new_pose
-        it += 1
+            with np.errstate(invalid="ignore"):   # inf - inf: not flat
+                flat = abs(f32(total_f - prev_loss)) < tcfg.early_stop_thre
+            break_cnt = break_cnt + 1 if flat else 0
+            done = break_cnt > tcfg.early_stop_cnt
+            if tcfg.stale_best_cnt > 0:
+                done = done or (it - best_it > tcfg.stale_best_cnt)
+            lr = plateau.lr_scale
+            lr_tree = {"quat": tcfg.cam_rot_lr * lr,
+                       "trans": tcfg.cam_trans_lr * lr,
+                       "exposure": tcfg.exposure_lr * lr}
+            old = {k: v.detach() for k, v in leaf.items()}
+            new_pose, adam = optim.adam_update(adam, old, grads, lr_tree,
+                                               amsgrad=True)
+            new_pose["quat"] = new_pose["quat"] / torch.clamp(
+                torch.linalg.norm(new_pose["quat"]), min=1e-12)
+            plateau = optim.plateau_update(plateau, total_f,
+                                           tcfg.plateau_patience,
+                                           tcfg.plateau_factor)
+            if total_f < best_loss:
+                best_pose = old
+                best_cl, best_dl, best_it = cl_f, dl_f, it
+            if record is not None:
+                record[it, :5] = (total_f, best_cl, best_dl, lr, 1.0)
+                record[it, 5:9] = old["quat"].cpu().numpy()
+                record[it, 9:] = old["trans"].cpu().numpy()
+            best_loss = min(total_f, best_loss)
+            prev_loss = total_f
+            pose = new_pose
+            it += 1
     rel = _rel_matrix(best_pose["quat"], best_pose["trans"])
     stats = np.array([best_loss, best_cl, best_dl, it, best_it], np.float32)
     return rel, best_pose["exposure"], stats, (adam, plateau)
@@ -328,7 +331,7 @@ def eval_init_candidates(params: GaussianParams, alive, rel_mats, last_w2c,
     colors = sh_to_rgb(params.f_dc)
     w = tcfg.w_color_loss
     cand, alphas = [], []
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("track.candidates"):
         for rel in rel_mats:
             q = rotmat_to_quat(rel[:3, :3])
             pose = {"quat": q, "trans": rel[:3, 3],
@@ -340,7 +343,8 @@ def eval_init_candidates(params: GaussianParams, alive, rel_mats, last_w2c,
             cl, dl = _losses_from_output(out, pose, gt_color, gt_depth, tcfg)
             cand.append(torch.stack([w * cl + (1 - w) * dl, cl, dl]))
             alphas.append(out.alpha)
-    return torch.stack(cand).cpu().numpy().astype(np.float32), alphas
+        cand = torch.stack(cand).cpu().numpy().astype(np.float32)
+    return cand, alphas
 
 
 def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
@@ -475,7 +479,6 @@ class Tracker:
         exp0 = (torch.zeros(2, device=dev) if exposure0 is None
                 else torch.as_tensor(exposure0, dtype=torch.float32,
                                      device=dev))
-        t0 = time.perf_counter()
         args = (params, alive, torch.as_tensor(rels, device=dev),
                 torch.as_tensor(last_w2c, dtype=torch.float32, device=dev),
                 gt_color, gt_depth, float(med_cl), float(med_dl), exp0)
@@ -488,13 +491,13 @@ class Tracker:
         rel = rel.detach().cpu().numpy()
         exposure = exposure.detach().cpu().numpy()
         stats = dict(zip(TRACK_STAT_NAMES, (float(v) for v in stats_vec)))
-        stats["track_dispatch_ms"] = 1e3 * (time.perf_counter() - t0)
         best = int(stats.pop("best_cand"))
         self.init_pose_cnt[names[best]] = \
             self.init_pose_cnt.get(names[best], 0) + 1
         self.frame_color_loss.append(stats["color_loss"])
         self.frame_depth_loss.append(stats["depth_loss"])
         self.iter_cnt.append(int(stats["iters"]))
+        tracing.count("track.iters", self.iter_cnt[-1])
         w2c = last_w2c @ np.asarray(rel, np.float64)
         c2w = np.linalg.inv(w2c)
         c2w[3] = [0.0, 0.0, 0.0, 1.0]

@@ -21,11 +21,15 @@ work: `GaussianSLAM` pipelines it one frame ahead); any other value
 inherits the device of the tensors it is given (the SLAM device), and the
 VO runs on the caller's current stream. `step` may run on a worker thread
 while the caller reads `get_edge_image`: the edge cache is locked.
+
+Its times (`stages`, host clock): the step (`vo.step`) and the keyframe's
+build (`vo.keyframe`, what its launches take the host: nothing waits for
+the card), and, while the tracer records (`utils/tracing.py`), the spans
+`vo.pyramid` and `vo.align` inside the step.
 """
 from __future__ import annotations
 
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core.camera import Camera
+from ..utils import tracing
 from .lm import LMResult, LMSettings, lm_align
 from .pyramid import FramePyramid, build_pyramid, make_keyframe
 
@@ -176,8 +181,7 @@ class EdgeVO:
         self.edge_cache: Dict[int, torch.Tensor] = {}
         self.prev_pyramid: Optional[FramePyramid] = None
         self.past_clouds = deque(maxlen=cfg.n_frames_histogram_voting)
-        self.track_times: List[float] = []
-        self.dt_times: List[float] = []
+        self.stages = tracing.Stages()
         self._start_pose = np.eye(4)
 
     @property
@@ -265,13 +269,8 @@ class EdgeVO:
 
     def _promote_keyframe(self, frame_id: int, pyr: FramePyramid,
                           T_w_frame: np.ndarray):
-        t0 = time.perf_counter()
-        dt_levels = make_keyframe(pyr, self.cfg.dt_window)
-        if dt_levels[0].dt.is_cuda:
-            # This thread's stream only: a device-wide synchronize would
-            # also wait for the loop closer's stream.
-            torch.cuda.current_stream(dt_levels[0].dt.device).synchronize()
-        self.dt_times.append(time.perf_counter() - t0)
+        with self.stages.span("vo.keyframe"):
+            dt_levels = make_keyframe(pyr, self.cfg.dt_window)
         self.keyframes.append(_Keyframe(frame_id, pyr, dt_levels,
                                         np.asarray(T_w_frame, np.float64)))
 
@@ -280,7 +279,10 @@ class EdgeVO:
              timestamp: float) -> np.ndarray:
         """Process one frame; returns Twc (4, 4) float64. A VO pinned to
         the CPU takes its inputs there (tensors or arrays)."""
-        t0 = time.perf_counter()
+        with self.stages.span("vo.step"):
+            return self._step(rgb, depth, timestamp)
+
+    def _step(self, rgb, depth, timestamp: float) -> np.ndarray:
         if self._device is not None:
             rgb = torch.as_tensor(rgb).to(self._device)
             depth = torch.as_tensor(depth).to(self._device)
@@ -290,10 +292,11 @@ class EdgeVO:
             rgb = rgb[:h:f, :w:f]
             depth = depth[:h:f, :w:f]
         frame_id = len(self.graph)
-        pyr = build_pyramid(rgb, depth, self.cam, self.cfg.levels,
-                            self.cfg.max_edge_points, self.cfg.canny_low,
-                            self.cfg.canny_high, self.cfg.depth_min,
-                            self.cfg.depth_max, timestamp)
+        with tracing.span("vo.pyramid"):
+            pyr = build_pyramid(rgb, depth, self.cam, self.cfg.levels,
+                                self.cfg.max_edge_points, self.cfg.canny_low,
+                                self.cfg.canny_high, self.cfg.depth_min,
+                                self.cfg.depth_max, timestamp)
         with self._edge_lock:
             self.edge_cache[frame_id] = pyr.levels[0].edges
             for k in [k for k in self.edge_cache if k < frame_id - 4]:
@@ -303,7 +306,6 @@ class EdgeVO:
             self._promote_keyframe(0, pyr, self._start_pose)
             self.graph.append((0, np.eye(4)))
             self.prev_pyramid = pyr
-            self.track_times.append(time.perf_counter() - t0)
             return self._world_pose(0)
 
         # Constant-velocity guess.
@@ -316,8 +318,9 @@ class EdgeVO:
 
         kf_idx = len(self.keyframes) - 1
         kf = self.keyframes[kf_idx]
-        T_kf_cur, res, counts = self._track_vote(
-            kf, pyr, np.linalg.inv(kf.T_w_kf) @ T_w_init)
+        with tracing.span("vo.align"):
+            T_kf_cur, res, counts = self._track_vote(
+                kf, pyr, np.linalg.inv(kf.T_w_kf) @ T_w_init)
         T_w_cur = kf.T_w_kf @ T_kf_cur
         if self._needs_new_kf(res, counts) and self.prev_pyramid is not None:
             # Promote the previous frame and re-track against it.
@@ -325,8 +328,9 @@ class EdgeVO:
                                    self._world_pose(frame_id - 1))
             kf_idx = len(self.keyframes) - 1
             kf = self.keyframes[kf_idx]
-            T_kf_cur, res = self._track_against(
-                kf, pyr, np.linalg.inv(kf.T_w_kf) @ T_w_init)
+            with tracing.span("vo.align"):
+                T_kf_cur, res = self._track_against(
+                    kf, pyr, np.linalg.inv(kf.T_w_kf) @ T_w_init)
             T_w_cur = kf.T_w_kf @ T_kf_cur
 
         self.graph.append((kf_idx, T_kf_cur))
@@ -334,16 +338,16 @@ class EdgeVO:
         self.past_clouds.append((pyr.levels[hl].pts,
                                  pyr.levels[hl].pts_valid, T_w_cur))
         self.prev_pyramid = pyr
-        self.track_times.append(time.perf_counter() - t0)
         return T_w_cur
 
     def report(self) -> Dict:
+        """Keyframes, and the host's mean ms a step and a keyframe's build
+        (`mean_dt_ms`: the launches of the distance transform, which the
+        step does not wait for)."""
         return {
             "n_keyframes": len(self.keyframes),
-            "mean_track_ms": 1e3 * float(np.mean(self.track_times))
-            if self.track_times else 0.0,
-            "mean_dt_ms": 1e3 * float(np.mean(self.dt_times))
-            if self.dt_times else 0.0,
+            "mean_track_ms": self.stages.mean_ms("vo.step"),
+            "mean_dt_ms": self.stages.mean_ms("vo.keyframe"),
         }
 
     def dump_tum(self, path: str, timestamps=None):

@@ -37,7 +37,7 @@ def test_bench_deadline_stops_between_frames(tmp_path, monkeypatch):
     finally:
         gslam.cleanup()
     assert report["frames"] == 2
-    assert len(gslam.track_times) == 2
+    assert gslam.stages.count["track"] == 2
 
 
 def test_cli_runs_slice_on_cpu(tmp_path):
