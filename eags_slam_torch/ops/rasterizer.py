@@ -58,6 +58,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.camera import Camera
+from . import composite_sorted as _cs
 from .composite_entries import composite_entries, gather_entries_bwd
 from .composite_sorted import (NCH, P_MAX, PJ, composite_sorted,
                                composite_sorted_fwd, pose_grad_sorted,
@@ -165,6 +166,17 @@ def _quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
                      1 - 2 * (x * x + y * y)], -1),
     ], dim=-2)
+
+
+def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`a @ b` (batch axes broadcast) for a small inner size, a pose's 3
+    or 4: a sum of broadcast products in a fixed order, forward and
+    backward with no cuBLAS call, so that the tracker's CUDA graph, which
+    captures on a side stream, takes no cuBLAS workspace of its own."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
 
 
 def _v2_radius_cap(cfg: RasterConfig) -> float:
@@ -466,7 +478,7 @@ def _reproject_rows(e3d, w2c, cam: Camera, cfg: RasterConfig,
     radius]."""
     R = w2c[:3, :3]
     t = w2c[:3, 3]
-    p = R @ e3d[0:3] + t[:, None]
+    p = small_matmul(R, e3d[0:3]) + t[:, None]
     z = p[2]
     vis = z > cfg.near
     zc = torch.clamp(z, min=cfg.near)
@@ -834,15 +846,33 @@ def gt_tiles(image: torch.Tensor, tile_ids, ts: int, tiles_x: int,
 # Pose-contraction tracking path (K4)
 # ---------------------------------------------------------------------------
 
+_HOMOGENEOUS = torch.tensor([[0.0, 0.0, 0.0, 1.0]])
+_ON_DEVICE = {}   # (name, dtype, device) -> a constant's copy there
+
+
+def _on_device(name: str, value: torch.Tensor, dtype, device):
+    """`value` on `device`, copied there once and kept, so that a tracker
+    iteration makes no host-to-device copy (a CUDA graph captures none)."""
+    key = (name, dtype, torch.device(device))
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        # Two threads that miss at once keep the first copy.
+        t = _ON_DEVICE.setdefault(key, value.to(device=device, dtype=dtype))
+    return t
+
+
+def homogeneous_row(dtype, device) -> torch.Tensor:
+    """[[0, 0, 0, 1]], the last row of a rigid transform, on `device`."""
+    return _on_device("homogeneous", _HOMOGENEOUS, dtype, device)
+
 
 def _pose_rel_w2c(pose_vec: torch.Tensor, last_w2c: torch.Tensor):
     """w2c = last_w2c @ Rel(quat=pose_vec[:4], trans=pose_vec[4:7]), the
     float chain of the tracker's `last_w2c @ _rel_matrix(quat, trans)`."""
     R = _quat_to_rotmat(pose_vec[:4])
     top = torch.cat([R, pose_vec[4:7, None]], 1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype,
-                          device=R.device)
-    return last_w2c @ torch.cat([top, bottom], 0)
+    rel = torch.cat([top, homogeneous_row(R.dtype, R.device)], 0)
+    return small_matmul(last_w2c, rel)
 
 
 # d rotmat(n) / d n for a unit quaternion n = (w, x, y, z): every entry is
@@ -868,11 +898,13 @@ def _w2c_tangents(pose_vec, last_w2c):
     q = pose_vec[:4]
     s = torch.clamp(torch.linalg.norm(q), min=1e-12)
     n = q / s
-    dfdn = torch.einsum("mkl,l->mk", _DROT.to(q.device), n)     # (9, 4)
+    drot = _on_device("drot", _DROT, _DROT.dtype, q.device)
+    dfdn = (drot * n).sum(-1)                                   # (9, 4)
     dndq = (torch.eye(4, device=q.device) - n[:, None] * n[None, :]) / s
-    dRq = (dfdn @ dndq).reshape(3, 3, 4).permute(2, 0, 1)       # (4, 3, 3)
+    dRq = small_matmul(dfdn, dndq).reshape(3, 3, 4).permute(2, 0, 1)
     LR = last_w2c[:3, :3]
-    dR = torch.cat([LR @ dRq, torch.zeros((3, 3, 3), device=q.device)])
+    dR = torch.cat([small_matmul(LR, dRq),                      # (4, 3, 3)
+                    torch.zeros((3, 3, 3), device=q.device)])
     dt = torch.cat([torch.zeros((4, 3), device=q.device), LR.T])
     return dR, dt
 
@@ -890,8 +922,8 @@ def _pose_jacobian(e3d, pose_vec, last_w2c, cam: Camera, cfg: RasterConfig):
     Rw, tw = R[:3, :3], R[:3, 3]
     dR, dt = _w2c_tangents(pose_vec, last_w2c)
     x = e3d[0:3]
-    p = Rw @ x + tw[:, None]                                    # (3, N)
-    dp = torch.einsum("kij,jn->kin", dR, x) + dt[:, :, None]    # (7, 3, N)
+    p = small_matmul(Rw, x) + tw[:, None]                       # (3, N)
+    dp = small_matmul(dR, x) + dt[:, :, None]                   # (7, 3, N)
     z = p[2]
     zc = torch.clamp(z, min=cfg.near)
     inv_z = 1.0 / zc
@@ -903,9 +935,12 @@ def _pose_jacobian(e3d, pose_vec, last_w2c, cam: Camera, cfg: RasterConfig):
     sig = torch.stack([torch.stack([e3d[3], e3d[4], e3d[5]]),
                        torch.stack([e3d[4], e3d[6], e3d[7]]),
                        torch.stack([e3d[5], e3d[7], e3d[8]])])  # (3, 3, N)
-    S = torch.einsum("abn,ib->ian", sig, Rw)     # S[i] = Sigma r_i (3, N)
-    C = torch.einsum("ian,ja->ijn", S, Rw)       # C[i, j] = r_j Sigma r_i
-    dRS = torch.einsum("kia,jan->kijn", dR, S)   # dr_i . Sigma r_j
+    n = x.shape[1]
+    # S[i] = Sigma r_i (3, N); C[i, j] = r_j Sigma r_i; dRS: dr_i . Sigma r_j
+    S = small_matmul(Rw, sig.reshape(3, 3 * n)).reshape(3, 3, n)
+    C = small_matmul(Rw, S)
+    dRS = small_matmul(dR, S.permute(1, 0, 2).reshape(3, 3 * n)
+                       ).reshape(7, 3, 3, n)
     dC = dRS + dRS.transpose(1, 2)               # (7, 3, 3, N)
 
     lim_x = 1.3 * (0.5 * cam.width / cam.fx)
@@ -1028,3 +1063,90 @@ def render_frozen_sorted_pose(fs: FrozenSorted, pose_vec, last_w2c,
                              _all_tiles(cam, cfg, fs.e3d.device), cam, cfg)
     return _full_image(out, cam, cfg,
                        torch.zeros(1, dtype=torch.int32, device=out.device))
+
+
+# ---------------------------------------------------------------------------
+# The frozen sorted render step by step (the tracker's refine iteration)
+# ---------------------------------------------------------------------------
+# `render_frozen_sorted(_tiles)(_pose)` run K1 and its backward inside
+# autograd. The tracker's refinement takes the same steps one by one: the
+# rows (`frozen_rows`, `frozen_pose_rows`), K1 (`frozen_fwd`), its losses
+# on `out`, then K2 / K3 (`frozen_bwd`) and autograd through the rows, or
+# K4 (`frozen_pose_grad`). So a CUDA graph can hold the work between the
+# kernels while each kernel launches as a call of its own
+# (`slam/tracker.py` `RefineGraph`). The kernels are looked up in their
+# modules at each call.
+
+
+def frozen_rows(fs: FrozenSorted, w2c, cam: Camera, cfg: RasterConfig):
+    """The float32 kernel rows of `fs` at `w2c`, differentiable w.r.t. w2c
+    (`render_frozen_sorted`'s)."""
+    check_config(cfg)
+    return _stack_reproj_rows(fs.e3d, w2c, cam, cfg)
+
+
+@torch.no_grad()
+def frozen_pose_rows(fs: FrozenSorted, pose_vec, last_w2c, cam: Camera,
+                     cfg: RasterConfig):
+    """The float32 kernel rows at last_w2c @ Rel(pose_vec) and their pose
+    jacobian in K4's layout (`render_frozen_sorted_pose`'s)."""
+    check_config(cfg)
+    rows = _stack_reproj_rows(fs.e3d, _pose_rel_w2c(pose_vec, last_w2c),
+                              cam, cfg)
+    return rows, _pose_jacobian(fs.e3d, pose_vec, last_w2c, cam, cfg)
+
+
+def frozen_tile_ids(tile_ids, cam: Camera, cfg: RasterConfig, device):
+    """`tile_ids` as K1 reads them (int32, contiguous); every tile of the
+    image when None."""
+    if tile_ids is None:
+        return _all_tiles(cam, cfg, device)
+    return tile_ids.to(torch.int32).contiguous()
+
+
+def frozen_image(out, tile_ids, cam: Camera, cfg: RasterConfig):
+    """K1's `out` as `render_frozen_sorted_tiles` returns it for `tile_ids`,
+    or with `tile_ids` None as `render_frozen_sorted` does (radii zero)."""
+    if tile_ids is not None:
+        return _tile_render(out, tile_ids.shape[0], cfg.tile)
+    return _full_image(out, cam, cfg,
+                       torch.zeros(1, dtype=torch.int32, device=out.device))
+
+
+def kernel_rows(rows, cfg: RasterConfig):
+    """The rows as K1-K4 read them: detached, contiguous, in the bf16 layout
+    with `kernel_bf16`."""
+    rows = rows.detach().contiguous()
+    return to_bf16_layout(rows) if cfg.kernel_bf16 else rows
+
+
+def frozen_fwd(rows, seg_start, seg_cnt, tile_ids, cam: Camera,
+               cfg: RasterConfig):
+    """K1 on `kernel_rows` over int32 `tile_ids`: (out (S, 8, PX), cols)."""
+    tiles_x, _ = _tiles(cam, cfg)
+    return composite_sorted_fwd(rows, seg_start, seg_cnt, tile_ids, cfg.tile,
+                                tiles_x, cfg.bands, cfg.seg_cap,
+                                cfg.kernel_quadform)
+
+
+def frozen_bwd(rows, seg_start, tile_ids, out, cols, dout, cam: Camera,
+               cfg: RasterConfig):
+    """K2 (K3 with `rmw_window`) after `frozen_fwd`: the float32 rows'
+    gradient (NCH, Npad) for the cotangent `dout` of `out`."""
+    tiles_x, _ = _tiles(cam, cfg)
+    if cfg.rmw_window:
+        return _cs.composite_sorted_bwd_window(
+            rows, seg_start, tile_ids, out, cols, dout, cfg.tile, tiles_x,
+            cfg.bands, cfg.seg_cap, cfg.group, cfg.kernel_quadform)
+    return _cs.composite_sorted_bwd(rows, tile_ids, out, cols, dout,
+                                    cfg.tile, tiles_x, cfg.bands,
+                                    cfg.kernel_quadform)
+
+
+def frozen_pose_grad(rows, jac, tile_ids, out, cols, dout, cam: Camera,
+                     cfg: RasterConfig):
+    """K4 after `frozen_fwd`: the gradient (7,) w.r.t. `frozen_pose_rows`'
+    pose_vec for the cotangent `dout` of `out`."""
+    tiles_x, _ = _tiles(cam, cfg)
+    return pose_grad_sorted(rows, jac, tile_ids, out, cols, dout, cfg.tile,
+                            tiles_x, cfg.kernel_quadform)

@@ -19,9 +19,21 @@ Python/numpy scalars plus the pose tensors. With a mesh and `sp_track`,
 (`eval_init_candidates`) and refines over the mesh's split tile grid
 (parallel/mesh.py `sp_track_refine`: the full grid, no subset, no polish,
 no K4).
+
+Every refine iteration is one function, `_iteration`: the loss, its
+gradient and the amsgrad step on the flat pose. On the sorted backend the
+loss runs the frozen render in steps (`_frozen_sorted_loss`), handing out
+its kernel calls. On the card, `Tracker.track` hands the refinement a
+`RefineGraph`, which captures a phase's second iteration between those
+calls as CUDA graphs and replays them for the rest, the kernels launched
+in between as in the eager loop; the first iteration runs eagerly as the
+warm-up. The other callers of `_refine` (the loop closer's localisation,
+`sp_track_refine`) and every CPU run run `_iteration` eagerly.
 """
 from __future__ import annotations
 
+import inspect
+import itertools
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -32,10 +44,11 @@ from ..core.gaussians import GaussianParams
 from ..core.se3 import quat_to_rotmat, rotmat_to_quat
 from ..core.sh import sh_to_rgb
 from ..ops.rasterizer import (RasterConfig, backend_of, freeze_binning,
-                              freeze_sorted, gt_tiles, render, render_frozen,
-                              render_frozen_sorted, render_frozen_sorted_pose,
-                              render_frozen_sorted_tiles,
-                              render_frozen_sorted_tiles_pose, tile_sums)
+                              freeze_sorted, frozen_bwd, frozen_fwd,
+                              frozen_image, frozen_pose_grad,
+                              frozen_pose_rows, frozen_rows, frozen_tile_ids,
+                              gt_tiles, homogeneous_row, kernel_rows, render,
+                              render_frozen, small_matmul, tile_sums)
 from ..utils import optim, tracing
 
 
@@ -78,9 +91,7 @@ DEBUG_ITER_NAMES = ("loss", "color_loss", "depth_loss", "lr_scale",
 def _rel_matrix(quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     R = quat_to_rotmat(quat)
     top = torch.cat([R, trans[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype,
-                          device=R.device)
-    return torch.cat([top, bottom], dim=0)
+    return torch.cat([top, homogeneous_row(R.dtype, R.device)], dim=0)
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -125,11 +136,10 @@ def _losses_from_output(out, pose: Dict[str, torch.Tensor], gt_color,
         color_px = color_px * tracking_mask[..., None]
     n_color = (color_px > 0).sum()
     n_depth = (depth_px > 0).sum()
-    inf = torch.tensor(float("inf"), device=color_px.device)
     color_loss = torch.where(n_color > 0, color_px.sum()
-                             / torch.clamp(n_color, min=1), inf)
+                             / torch.clamp(n_color, min=1), float("inf"))
     depth_loss = torch.where(n_depth > 0, depth_px.sum()
-                             / torch.clamp(n_depth, min=1), inf)
+                             / torch.clamp(n_depth, min=1), float("inf"))
     return color_loss, depth_loss
 
 
@@ -138,8 +148,11 @@ def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
                   tcfg: TrackerConfig, subset=None):
     """Refinement loss over the frozen layout of the backend: the
     centre-sorted one (tile subset when `subset` = (tile_ids, gt_c_tiles,
-    gt_d_tiles, in_img) is given) or the entry binning; the full render
-    every iteration with `frozen_binning` off or on the `jnp` backend."""
+    gt_d_tiles, in_img) is given; `_frozen_sorted_loss`) or the entry
+    binning; the full render every iteration with `frozen_binning` off or on
+    the `jnp` backend. Called on the pose's leaves (LEAVES): (total,
+    (colour, depth)), or on the sorted backend the generator of
+    `_frozen_sorted_loss`."""
     w = tcfg.w_color_loss
     if not tcfg.frozen_binning or backend_of(rcfg) == "jnp":
         def loss_full(pose):
@@ -165,70 +178,288 @@ def _make_loss_fn(params: GaussianParams, alive, colors, init_rel, last_w2c,
     fs = freeze_sorted(params.xyz, params.quats, params.log_scales,
                        params.opacity_logits, colors, last_w2c @ init_rel,
                        cam, rcfg, alive=alive)
-    if subset is not None:
-        tile_ids, gt_c_t, gt_d_t, in_img = subset
+    if subset is None:
+        return _frozen_sorted_loss(fs, last_w2c, None, gt_color, gt_depth,
+                                   None, cam, rcfg, tcfg)
+    return _frozen_sorted_loss(fs, last_w2c, *subset, cam, rcfg, tcfg)
 
-        def render_fn(pose):
-            if tcfg.pose_grad_kernel:
-                return render_frozen_sorted_tiles_pose(
-                    fs, torch.cat([pose["quat"], pose["trans"]]), last_w2c,
-                    tile_ids, cam, rcfg)
-            return render_frozen_sorted_tiles(
-                fs, last_w2c @ _rel_matrix(pose["quat"], pose["trans"]),
-                tile_ids, cam, rcfg)
 
-        def loss_fn(pose):
-            cl, dl = _losses_from_output(render_fn(pose), pose, gt_c_t,
-                                         gt_d_t, tcfg, valid=in_img)
-            return w * cl + (1 - w) * dl, (cl, dl)
+def _frozen_sorted_loss(fs, last_w2c, tile_ids, gt_color, gt_depth, valid,
+                        cam: Camera, rcfg: RasterConfig, tcfg: TrackerConfig):
+    """The loss of `render_frozen_sorted_tiles` (of `render_frozen_sorted`
+    with `tile_ids` None; their `_pose` forms with `pose_grad_kernel`) in
+    steps (`rasterizer.frozen_rows` ...): called on the pose's leaves, a
+    generator that yields each kernel call as (function, arguments), takes
+    its result back, and returns (total, colour, depth, the gradient in
+    LEAVES' flat order), autograd's through those renders."""
+    w = tcfg.w_color_loss
+    ids = frozen_tile_ids(tile_ids, cam, rcfg, fs.e3d.device)
+    seg_start = fs.seg_start.to(torch.int32).contiguous()
+    seg_cnt = fs.seg_cnt.to(torch.int32).contiguous()
+
+    def loss(leaf):
+        if tcfg.pose_grad_kernel:
+            rows, jac = frozen_pose_rows(
+                fs, torch.cat([leaf["quat"], leaf["trans"]]).detach(),
+                last_w2c, cam, rcfg)
+        else:
+            rows = frozen_rows(fs, small_matmul(
+                last_w2c, _rel_matrix(leaf["quat"], leaf["trans"])), cam,
+                rcfg)
+        k_rows = kernel_rows(rows, rcfg)
+        out, cols = yield frozen_fwd, (k_rows, seg_start, seg_cnt, ids, cam,
+                                       rcfg)
+        out_l = out.detach().requires_grad_(True)
+        image = frozen_image(out_l, None if tile_ids is None else ids, cam,
+                             rcfg)
+        cl, dl = _losses_from_output(image, leaf, gt_color, gt_depth, tcfg,
+                                     valid=valid)
+        total = w * cl + (1 - w) * dl
+        dout, ge = torch.autograd.grad(total, [out_l, leaf["exposure"]],
+                                       allow_unused=True)
+        if ge is None:
+            ge = torch.zeros_like(leaf["exposure"])
+        dout = dout.contiguous()
+        if tcfg.pose_grad_kernel:
+            dpose = yield frozen_pose_grad, (k_rows, jac, ids, out, cols,
+                                             dout, cam, rcfg)
+            return total, cl, dl, torch.cat([dpose[:7], ge])
+        grads = yield frozen_bwd, (k_rows, seg_start, ids, out, cols, dout,
+                                   cam, rcfg)
+        gq, gt = torch.autograd.grad(rows, [leaf["quat"], leaf["trans"]],
+                                     grads)
+        return total, cl, dl, torch.cat([gq, gt, ge])
+    return loss
+
+
+LEAVES = ("quat", "trans", "exposure")     # the pose's flat layout
+_SIZES = (4, 3, 2)
+
+
+def _split(x: torch.Tensor) -> dict:
+    return dict(zip(LEAVES, torch.split(x, _SIZES)))
+
+
+class _RefineState:
+    """A refine phase's tensors, flat in LEAVES' order: the pose `x`; `old`,
+    the pose the last iteration started from; `best`; the amsgrad Adam
+    moments (mu, nu, vmax); the last iteration's losses `vals` (total,
+    colour, depth); and the step's scalars `scal`, written by the host
+    through `host` (pinned on the card) before each iteration."""
+
+    def __init__(self, x: torch.Tensor, moments: torch.Tensor):
+        self.x, self.old, self.best = x.clone(), x.clone(), x.clone()
+        self.moments = moments.clone()
+        self.vals = torch.zeros(3, dtype=x.dtype, device=x.device)
+        self.scal = torch.zeros(2 + x.shape[0], dtype=torch.float32,
+                                device=x.device)
+        self.host = torch.zeros(2 + x.shape[0], dtype=torch.float32,
+                                pin_memory=x.device.type == "cuda")
+
+    def stage(self, step: int, lrs) -> None:
+        """The scalars of Adam step `step` at the per-element learning rates
+        `lrs`. The previous iteration's loss read waited for the last copy
+        from `host`."""
+        self.host.numpy()[:] = optim.staged_scalars(step, lrs)
+        self.scal.copy_(self.host, non_blocking=True)
+
+
+def _iteration(loss_fn, st: _RefineState):
+    """One refine iteration, in place on `st`: the losses into `vals`, the
+    pose it starts from into `old`, the next pose (amsgrad Adam, the
+    quaternion renormalised) into `x`. A generator: it passes on the kernel
+    calls of a `_frozen_sorted_loss` (a plain loss has none)."""
+    leaf = {k: v.detach().requires_grad_(True)
+            for k, v in _split(st.x).items()}
+    res = loss_fn(leaf)
+    if inspect.isgenerator(res):
+        total, cl, dl, grad = yield from res
     else:
-        def render_fn(pose):
-            if tcfg.pose_grad_kernel:
-                return render_frozen_sorted_pose(
-                    fs, torch.cat([pose["quat"], pose["trans"]]), last_w2c,
-                    cam, rcfg)
-            return render_frozen_sorted(
-                fs, last_w2c @ _rel_matrix(pose["quat"], pose["trans"]),
-                cam, rcfg)
+        total, (cl, dl) = res
+        grads = torch.autograd.grad(total, [leaf[k] for k in LEAVES],
+                                    allow_unused=True)
+        grad = torch.cat([torch.zeros_like(leaf[k]) if g is None else g
+                          for k, g in zip(LEAVES, grads)])
+    with torch.no_grad():
+        st.vals.copy_(torch.stack([total, cl, dl]))
+        new, mu, nu, vmax = optim.adam_amsgrad_staged(st.x, grad,
+                                                      *st.moments, st.scal)
+        new[:4] = new[:4] / torch.clamp(torch.linalg.norm(new[:4]),
+                                        min=1e-12)
+        st.old.copy_(st.x)
+        st.x.copy_(new)
+        st.moments.copy_(torch.stack([mu, nu, vmax]))
 
-        def loss_fn(pose):
-            cl, dl = _losses_from_output(render_fn(pose), pose, gt_color,
-                                         gt_depth, tcfg)
-            return w * cl + (1 - w) * dl, (cl, dl)
-    return loss_fn
+
+def _run(iteration) -> None:
+    """Run an `_iteration` eagerly, each kernel call as it comes."""
+    try:
+        call = next(iteration)
+        while True:
+            fn, args = call
+            call = iteration.send(fn(*args))
+    except StopIteration:
+        pass
+
+
+def _tensors(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+class RefineGraph:
+    """`_iteration` as CUDA graphs with the compositing kernels left out: a
+    refine phase's second iteration is captured (`capture`) and its later
+    ones replay it (`replay`); the first runs eagerly as the warm-up. The
+    work between two kernel calls is one graph, a segment; the kernels (K1,
+    then K2 / K3 or K4) launch between the segments' replays as calls of
+    their own, so each launch is counted and timed on the loop's stream as
+    in the eager loop. The host keeps the loop's control flow (the loss
+    read, the stops, the plateau, the best iterate). `Tracker.track` makes
+    one for the card.
+
+    Memory: the segments work in place on the phase's tensors (the frozen
+    layout, the tile ids, the GT tiles and masks, `_RefineState`) and copy
+    none of them. Every capture goes to one private pool, which holds what
+    a segment leaves to a later one (the reprojected rows, the cotangent)
+    and the segments' scratch, and which the next capture reuses (the
+    previous graphs are reset once it is done: torch 2.11 fails an
+    internal assert when a capture goes to a pool whose graphs were all
+    reset). The kernels' outputs that a segment reads (K1's `out`, K2's
+    gradient) are the capture's, and each replay copies its own into them.
+    At the phase's end (`release`) the capture's tensors go, and the pool's
+    reserved blocks, free, wait for the next capture: they are the graph's
+    memory. The segments make no cuBLAS call (`small_matmul`), so the side
+    stream needs no cuBLAS workspace.
+
+    The capture runs on a side stream fenced both ways with the loop's
+    stream, where the replays and the kernel calls run, in `thread_local`
+    mode, so that the loop closer's thread may allocate and launch
+    meanwhile; it calls `capture_begin` / `capture_end`, not
+    `torch.cuda.graph`, which would synchronise the device and empty the
+    caches at every capture. A capture that fails raises.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a refine graph needs a CUDA device, not "
+                             f"{self.device}")
+        self.pool = torch.cuda.graph_pool_handle()
+        self.side = torch.cuda.Stream(device=self.device)
+        self.segments = []      # CUDAGraph: one before each call, one last
+        self.calls = []         # (function, arguments, the capture's result)
+        self.captures = self.replays = 0
+
+    def capture(self, iteration) -> None:
+        """Run the generator `iteration` (`_iteration`) once, capturing each
+        segment and replaying it on the loop's stream, where the kernel
+        calls run in between."""
+        loop = torch.cuda.current_stream(self.device)
+        old, self.segments, self.calls = self.segments, [], []
+        sent, call = None, ()
+        while call is not None:
+            graph = torch.cuda.CUDAGraph()
+            self.side.wait_stream(loop)
+            with torch.cuda.stream(self.side):
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    call = iteration.send(sent)
+                except StopIteration:
+                    call = None
+                finally:
+                    graph.capture_end()
+            loop.wait_stream(self.side)
+            graph.replay()
+            self.segments.append(graph)
+            if call is not None:
+                fn, args = call
+                sent = fn(*args)
+                self.calls.append((fn, args, sent))
+        for graph in old:
+            graph.reset()
+        self.captures += 1
+        self.replays += 1       # the capture's iteration ran its graphs
+
+    def replay(self) -> None:
+        """The captured iteration again: each segment, and between them the
+        kernel calls anew, an argument that an earlier call returned at the
+        capture replaced by what that call returns now, which is copied
+        where the segments read it."""
+        done = []               # (the capture's result, this replay's)
+        for graph, call in itertools.zip_longest(self.segments, self.calls):
+            graph.replay()
+            if call is None:
+                break
+            fn, args, kept = call
+            got = fn(*(_now(a, done) for a in args))
+            for k, g in zip(_tensors(kept), _tensors(got)):
+                k.copy_(g)
+            done.append((kept, got))
+        self.replays += 1
+
+    def release(self) -> None:
+        """The phase is over: let go of the capture's tensors, so that only
+        the pool's reserved blocks stay for the next capture."""
+        self.calls = []
+
+    def tally(self):
+        """(captures, iterations run from the graphs) since the last
+        call."""
+        out = (self.captures, self.replays)
+        self.captures = self.replays = 0
+        return out
+
+
+def _now(arg, done):
+    """`arg`, or this replay's result in its place where it is a result of
+    the capture's calls."""
+    for kept, got in done:
+        for k, g in zip(_tensors(kept), _tensors(got)):
+            if arg is k:
+                return g
+    return arg
 
 
 def _refine(loss_fn, init_rel, num_iters: int, exposure0,
-            tcfg: TrackerConfig, warm=None, record=None):
+            tcfg: TrackerConfig, warm=None, record=None, graph=None):
     """Pose refinement loop; returns (rel_best 4x4, exposure, stats (5,)
-    np.float32 of STAT_NAMES, (adam, plateau)). `warm` = (adam, plateau)
+    np.float32 of STAT_NAMES, (Adam step, moments, plateau)). `warm`
     continues a previous phase's optimizer state. `record`: an (I, 12)
-    array whose row `it` gets iteration it's DEBUG_ITER_NAMES values."""
+    array whose row `it` gets iteration it's DEBUG_ITER_NAMES values.
+    `graph`: a `RefineGraph` that captures the second iteration and replays
+    it for the others (not with `record`), the same iterations."""
+    if graph is not None and record is not None:
+        raise ValueError("a refine graph records no iterations")
     f32 = np.float32
-    q0 = rotmat_to_quat(init_rel[:3, :3])
-    pose = {"quat": q0, "trans": init_rel[:3, 3].clone(),
-            "exposure": exposure0.clone()}
-    adam = optim.adam_init(pose) if warm is None else warm[0]
-    plateau = optim.plateau_init() if warm is None else warm[1]
+    x = torch.cat([rotmat_to_quat(init_rel[:3, :3]), init_rel[:3, 3],
+                   exposure0])
+    if warm is None:
+        step, plateau = 0, optim.plateau_init()
+        moments = torch.zeros(3, x.shape[0], dtype=x.dtype, device=x.device)
+    else:
+        step, moments, plateau = warm
+    st = _RefineState(x, moments)
     it, break_cnt, done = 0, 0, False
     prev_loss = f32(np.inf)
     best_loss, best_cl, best_dl, best_it = (f32(np.inf), f32(np.inf),
                                             f32(np.inf), 0)
-    best_pose = {k: v.detach().clone() for k, v in pose.items()}
     while it < num_iters and not done:
         with tracing.span("track.iter"):
-            leaf = {k: v.detach().requires_grad_(True)
-                    for k, v in pose.items()}
-            total, (cl, dl) = loss_fn(leaf)
-            gq, gt, ge = torch.autograd.grad(
-                total, [leaf["quat"], leaf["trans"], leaf["exposure"]],
-                allow_unused=True)
-            grads = {"quat": gq, "trans": gt,
-                     "exposure": ge if ge is not None
-                     else torch.zeros_like(leaf["exposure"])}
+            lr = plateau.lr_scale
+            step += 1
+            st.stage(step, [tcfg.cam_rot_lr * lr] * 4
+                     + [tcfg.cam_trans_lr * lr] * 3
+                     + [tcfg.exposure_lr * lr] * 2)
+            if graph is None or it == 0:
+                _run(_iteration(loss_fn, st))
+            elif it == 1:
+                with tracing.span("track.capture"):
+                    graph.capture(_iteration(loss_fn, st))
+            else:
+                graph.replay()
             with tracing.span("track.readback"):
-                vals = torch.stack([total.detach(), cl.detach(),
-                                    dl.detach()]).cpu()
+                vals = st.vals.cpu()
             total_f, cl_f, dl_f = (f32(v) for v in vals.numpy())
 
             with np.errstate(invalid="ignore"):   # inf - inf: not flat
@@ -237,32 +468,24 @@ def _refine(loss_fn, init_rel, num_iters: int, exposure0,
             done = break_cnt > tcfg.early_stop_cnt
             if tcfg.stale_best_cnt > 0:
                 done = done or (it - best_it > tcfg.stale_best_cnt)
-            lr = plateau.lr_scale
-            lr_tree = {"quat": tcfg.cam_rot_lr * lr,
-                       "trans": tcfg.cam_trans_lr * lr,
-                       "exposure": tcfg.exposure_lr * lr}
-            old = {k: v.detach() for k, v in leaf.items()}
-            new_pose, adam = optim.adam_update(adam, old, grads, lr_tree,
-                                               amsgrad=True)
-            new_pose["quat"] = new_pose["quat"] / torch.clamp(
-                torch.linalg.norm(new_pose["quat"]), min=1e-12)
             plateau = optim.plateau_update(plateau, total_f,
                                            tcfg.plateau_patience,
                                            tcfg.plateau_factor)
             if total_f < best_loss:
-                best_pose = old
+                st.best.copy_(st.old)
                 best_cl, best_dl, best_it = cl_f, dl_f, it
             if record is not None:
                 record[it, :5] = (total_f, best_cl, best_dl, lr, 1.0)
-                record[it, 5:9] = old["quat"].cpu().numpy()
-                record[it, 9:] = old["trans"].cpu().numpy()
+                record[it, 5:] = st.old[:7].cpu().numpy()
             best_loss = min(total_f, best_loss)
             prev_loss = total_f
-            pose = new_pose
             it += 1
-    rel = _rel_matrix(best_pose["quat"], best_pose["trans"])
+    if graph is not None:
+        graph.release()
+    best = _split(st.best)
+    rel = _rel_matrix(best["quat"], best["trans"])
     stats = np.array([best_loss, best_cl, best_dl, it, best_it], np.float32)
-    return rel, best_pose["exposure"], stats, (adam, plateau)
+    return rel, best["exposure"], stats, (step, st.moments, plateau)
 
 
 def refine_pose(params: GaussianParams, alive, init_rel, last_w2c, gt_color,
@@ -349,9 +572,11 @@ def eval_init_candidates(params: GaussianParams, alive, rel_mats, last_w2c,
 
 def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
                 gt_depth, med_cl: float, med_dl: float, exposure0,
-                cam: Camera, rcfg: RasterConfig, tcfg: TrackerConfig):
+                cam: Camera, rcfg: RasterConfig, tcfg: TrackerConfig,
+                graph: RefineGraph = None):
     """Candidate scoring (full-image renders), iteration doubling, then the
-    refinement (tile subset + polish when configured, sorted backend only).
+    refinement (tile subset + polish when configured, sorted backend only),
+    each refine phase replayed as a CUDA graph by `graph` when given.
     Returns (rel 4x4, exposure (2,), stats np.float32 of TRACK_STAT_NAMES,
     per_iter): with `debug_per_iter`, per_iter is the (2 x iterations, 12)
     float32 record of DEBUG_ITER_NAMES (rows past the last iteration zero,
@@ -387,7 +612,7 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
     if subset is not None and polish > 0 and per_iter is None:
         n1 = max(num_iters - polish, 0)
         rel1, exp1, stats1, opt_state = _refine(loss_fn, init_rel, n1,
-                                                exposure0, tcfg)
+                                                exposure0, tcfg, graph=graph)
         s2 = int(round(tcfg.polish_frac * num_tiles))
         subset2 = None
         if 0 < s2 < num_tiles:
@@ -398,13 +623,14 @@ def track_frame(params: GaussianParams, alive, rel_mats, last_w2c, gt_color,
                                   subset=subset2)
         n2 = min(polish, num_iters)
         rel, exposure, stats, _ = _refine(loss_wide, rel1, n2, exp1, tcfg,
-                                          warm=opt_state)
+                                          warm=opt_state, graph=graph)
         stats = np.array([stats[0], stats[1], stats[2],
                           stats1[3] + stats[3], stats1[3] + stats[4]],
                          np.float32)
     else:
         rel, exposure, stats, _ = _refine(loss_fn, init_rel, num_iters,
-                                          exposure0, tcfg, record=per_iter)
+                                          exposure0, tcfg, record=per_iter,
+                                          graph=graph)
     stats = np.concatenate([stats, np.array([best, init_cl, init_dl],
                                             np.float32)])
     return rel, exposure, stats, per_iter
@@ -417,7 +643,11 @@ class Tracker:
     (parallel/mesh.py `sp_track_refine`): the candidates are scored apart
     from it (`eval_init_candidates`, the mesh's first rank's scores and
     poses broadcast to every rank), the iteration count doubled on the host,
-    and the per-iteration records of `debug_per_iter` are dropped."""
+    and the per-iteration records of `debug_per_iter` are dropped. On the
+    card, without `sp_track`, the refinement replays its iterations as a
+    CUDA graph (`RefineGraph`, one a tracker, `_refine_graph`); each
+    tracked frame counts its captures and replays (`track.graph_captures`,
+    `track.graph_replays`) beside its iterations."""
 
     def __init__(self, tcfg: TrackerConfig, rcfg: RasterConfig, cam: Camera,
                  mesh=None, sp_track: bool = False):
@@ -430,6 +660,7 @@ class Tracker:
         self.init_pose_cnt = {"const_speed": 0, "previous": 0, "odometer": 0}
         self.iter_cnt = []
         self.last_per_iter = None   # the last frame's record (debug_per_iter)
+        self._graph = None          # RefineGraph, made at the first use
         self._sp_refine = None
         if mesh is not None and sp_track:
             from ..parallel.mesh import sp_track_refine
@@ -441,6 +672,17 @@ class Tracker:
                               "(per-iteration diagnostics stay on the "
                               "single-device path)")
             self._sp_refine, _ = sp_track_refine(mesh, cam, rcfg, tcfg)
+
+    def _refine_graph(self, device):
+        """The refinement's CUDA graph where the inputs allow one: a CUDA
+        device, the sorted backend, frozen binning and no per-iteration
+        record; else None, the eager loop."""
+        if (device.type != "cuda" or backend_of(self.rcfg) != "sorted"
+                or not self.tcfg.frozen_binning or self.tcfg.debug_per_iter):
+            return None
+        if self._graph is None:
+            self._graph = RefineGraph(device)
+        return self._graph
 
     def _track_sp(self, params, alive, rels, last_w2c, gt_color, gt_depth,
                   med_cl: float, med_dl: float, exp0):
@@ -482,12 +724,14 @@ class Tracker:
         args = (params, alive, torch.as_tensor(rels, device=dev),
                 torch.as_tensor(last_w2c, dtype=torch.float32, device=dev),
                 gt_color, gt_depth, float(med_cl), float(med_dl), exp0)
+        graph = None
         if self._sp_refine is not None:
             rel, exposure, stats_vec, self.last_per_iter = \
                 self._track_sp(*args)
         else:
+            graph = self._refine_graph(dev)
             rel, exposure, stats_vec, self.last_per_iter = track_frame(
-                *args, self.cam, self.rcfg, self.tcfg)
+                *args, self.cam, self.rcfg, self.tcfg, graph=graph)
         rel = rel.detach().cpu().numpy()
         exposure = exposure.detach().cpu().numpy()
         stats = dict(zip(TRACK_STAT_NAMES, (float(v) for v in stats_vec)))
@@ -498,6 +742,9 @@ class Tracker:
         self.frame_depth_loss.append(stats["depth_loss"])
         self.iter_cnt.append(int(stats["iters"]))
         tracing.count("track.iters", self.iter_cnt[-1])
+        captures, replays = (0, 0) if graph is None else graph.tally()
+        tracing.count("track.graph_captures", captures)
+        tracing.count("track.graph_replays", replays)
         w2c = last_w2c @ np.asarray(rel, np.float64)
         c2w = np.linalg.inv(w2c)
         c2w[3] = [0.0, 0.0, 0.0, 1.0]

@@ -3,13 +3,15 @@ eags_slam_tpu.utils.optim).
 
 Parameter trees are plain dicts of tensors. Dead map rows receive zero
 gradients; `reset_slots` zeroes the moments of newly seeded rows. The
-amsgrad variant (`vmax`) drives the camera-pose optimizer."""
+amsgrad variant (`vmax`) drives the camera-pose optimizer, in the flat
+form `adam_amsgrad_staged` that the tracker's CUDA graph replays."""
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from typing import Dict
 
+import numpy as np
 import torch
 
 Tree = Dict[str, torch.Tensor]
@@ -21,11 +23,6 @@ class AdamState:
     mu: Tree
     nu: Tree
     vmax: Tree
-
-    def clone(self) -> "AdamState":
-        return AdamState(self.step, {k: v.clone() for k, v in self.mu.items()},
-                         {k: v.clone() for k, v in self.nu.items()},
-                         {k: v.clone() for k, v in self.vmax.items()})
 
 
 def adam_init(params: Tree) -> AdamState:
@@ -60,6 +57,31 @@ def adam_update(state: AdamState, params: Tree, grads: Tree, lr_tree,
         for k in params
     }
     return new, AdamState(step, mu, nu, vmax)
+
+
+def staged_scalars(step: int, lrs, b1: float = 0.9,
+                   b2: float = 0.999) -> np.ndarray:
+    """The host's part of `adam_amsgrad_staged` for Adam step `step`:
+    float32 (1 / (1 - b1^step), 1 / (1 - b2^step), *lrs), the bias
+    corrections taken in double."""
+    t = float(step)
+    return np.array([1.0 / (1.0 - math.pow(b1, t)),
+                     1.0 / (1.0 - math.pow(b2, t)), *lrs], np.float32)
+
+
+@torch.no_grad()
+def adam_amsgrad_staged(params, grads, mu, nu, vmax, scal, b1: float = 0.9,
+                        b2: float = 0.999, eps: float = 1e-8):
+    """`adam_update(..., amsgrad=True)` on flat tensors, its Python scalars
+    read from the tensor `scal` (`staged_scalars`: the bias corrections'
+    reciprocals, each element's learning rate), so that a CUDA graph can
+    replay it. Returns (new params, mu, nu, vmax)."""
+    mu = b1 * mu + (1 - b1) * grads
+    nu = b2 * nu + (1 - b2) * grads * grads
+    vmax = torch.maximum(vmax, nu)
+    new = params - scal[2:] * (mu * scal[0]) / (
+        torch.sqrt(vmax * scal[1]) + eps)
+    return new, mu, nu, vmax
 
 
 @torch.no_grad()

@@ -10,7 +10,9 @@ eags_slam_tpu.vo.system).
     frame, weights (0, 1, 1.25, 1.5): a new keyframe when
     sum(w_i * overlap_i) < overlap_0;
   - on a new keyframe the PREVIOUS frame is promoted and the current frame
-    re-tracked against it;
+    re-tracked against it; only the newest keyframe keeps its pyramid and
+    distance transforms (older ones keep their pose for the graph), so the
+    VO's device memory does not grow with the frames;
   - pose graph (keyframe, T_kf_frame) with world pose T_w_kf @ T_kf_frame,
     external pose injection `set_pose`, `report()`, `dump_tum`.
 
@@ -150,8 +152,8 @@ def _voting_counts(clouds, curr_edges, curr_depth, depth_min: float,
 @dataclass
 class _Keyframe:
     frame_id: int
-    pyramid: FramePyramid
-    dt_levels: tuple
+    pyramid: Optional[FramePyramid]   # None once a newer keyframe exists
+    dt_levels: Optional[tuple]
     T_w_kf: np.ndarray  # (4, 4) f64
 
 
@@ -271,6 +273,12 @@ class EdgeVO:
                           T_w_frame: np.ndarray):
         with self.stages.span("vo.keyframe"):
             dt_levels = make_keyframe(pyr, self.cfg.dt_window)
+        if self.keyframes:
+            # Frames track against the newest keyframe only: the older one
+            # keeps its pose for the graph, its pyramid and distance
+            # transforms (8.3 MiB at 640x480) go.
+            old = self.keyframes[-1]
+            old.pyramid = old.dt_levels = None
         self.keyframes.append(_Keyframe(frame_id, pyr, dt_levels,
                                         np.asarray(T_w_frame, np.float64)))
 

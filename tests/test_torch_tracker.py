@@ -16,8 +16,12 @@ from eags_slam_tpu.slam import tracker as JT
 from eags_slam_torch.core.camera import Camera
 from eags_slam_torch.core.gaussians import GaussianParams
 from eags_slam_torch.core.se3 import se3_exp
+from eags_slam_torch.lc import solver
+from eags_slam_torch.ops import rasterizer as R
 from eags_slam_torch.ops.rasterizer import RasterConfig
+from eags_slam_torch.parallel import mesh
 from eags_slam_torch.slam import tracker as T
+from eags_slam_torch.utils import tracing
 
 CAM = Camera(fx=60.0, fy=60.0, cx=23.5, cy=19.5, width=48, height=40)
 JCAM = JCamera(*CAM)
@@ -135,3 +139,148 @@ def test_tracker_host_flow_matches_jax():
     assert jtr.init_pose_cnt == ttr.init_pose_cnt
     assert t_st["iters"] == j_st["iters"]
     assert np.linalg.norm(t_c2w[:3, 3] - j_c2w[:3, 3]) < 1e-3
+
+
+
+def _toy_loss(*args, **kw):
+    """A stand-in for `_make_loss_fn`: a smooth loss of the pose alone, so
+    that the refine loop runs without the compositor's CPU twin."""
+    def loss_fn(pose):
+        q = pose["quat"] - torch.tensor([1.0, 0.02, -0.01, 0.0])
+        t = pose["trans"] - torch.tensor([0.01, -0.02, 0.03])
+        cl = (q * q).sum() + (t * t).sum() + 0.1 * (pose["exposure"] ** 2
+                                                    ).sum()
+        dl = 0.5 * (t * t).sum()
+        return 0.9 * cl + 0.1 * dl, (cl, dl)
+    return loss_fn
+
+
+def test_graph_runner_stays_off_the_eager_paths(monkeypatch):
+    """The CPU device, `debug_per_iter`, the loop closer's localisation and
+    `sp_track` keep the eager refine loop: no graph runner reaches
+    `_refine`, `track.graph_captures` reads 0, and `Tracker.track` returns
+    what `track_frame`'s eager loop returns (the loss a stand-in, the
+    candidates' scores fixed: the routing is under test here)."""
+    graphs = []
+    refine = T._refine
+
+    def spy(*args, graph=None, **kw):
+        graphs.append(graph)
+        return refine(*args, graph=graph, **kw)
+
+    def candidates(params, alive, rels, *args):
+        return (np.ones((len(rels), 3), np.float32),
+                [torch.ones(CAM.height, CAM.width)] * len(rels))
+
+    for mod in (T, solver):
+        monkeypatch.setattr(mod, "_refine", spy)
+        monkeypatch.setattr(mod, "_make_loss_fn", _toy_loss)
+    monkeypatch.setattr(T, "eval_init_candidates", candidates)
+    monkeypatch.setattr(mesh, "broadcast_tensors", lambda m, ts: ts)
+    # On a card as well, these settings keep the eager loop.
+    for tkw, rkw in (({"debug_per_iter": True}, {}),
+                     ({"frozen_binning": False}, {}),
+                     ({}, {"backend": "pallas"}), ({}, {"backend": "jnp"})):
+        tr = T.Tracker(T.TrackerConfig(**tkw), RCFG._replace(**rkw), CAM)
+        assert tr._refine_graph(torch.device("cuda")) is None
+
+    tp = GaussianParams(**{k: torch.as_tensor(v)
+                           for k, v in _scene(n=8).items()})
+    alive = torch.ones(8, dtype=torch.bool)
+    gen = torch.Generator().manual_seed(0)
+    gt = (torch.rand(CAM.height, CAM.width, 3, generator=gen),
+          torch.rand(CAM.height, CAM.width, generator=gen) + 1.0)
+    rel = torch.eye(4)
+    rel[:3, 3] = torch.tensor([0.004, 0.0, -0.003])
+    cands = {"previous": np.linalg.inv(rel.double().numpy())}
+    tracing.disable()
+    tracing.drain()
+    try:
+        tracing.enable()
+        for f, tkw in enumerate(({"polish_iters": 2},
+                                 {"debug_per_iter": True})):
+            tcfg = T.TrackerConfig(iterations=6, tile_subset_frac=0.5, **tkw)
+            with tracing.frame(f):
+                c2w, _, stats = T.Tracker(tcfg, RCFG, CAM).track(
+                    tp, alive, np.eye(4), cands, *gt)
+            e_rel, _, e_stats, _ = T.track_frame(
+                tp, alive, rel[None].float(), torch.eye(4), *gt, np.inf,
+                np.inf, torch.zeros(2), CAM, RCFG, tcfg)
+            want = np.linalg.inv(e_rel.numpy().astype(np.float64))
+            want[3] = [0.0, 0.0, 0.0, 1.0]
+            np.testing.assert_array_equal(c2w, want)
+            assert stats["iters"] == e_stats[3] == 6
+        # sp_track: the mesh's split refinement, never the runner.
+        sp = T.Tracker(T.TrackerConfig(iterations=3), RCFG, CAM)
+        sp._sp_refine = lambda *a: (torch.eye(4), torch.zeros(2),
+                                    np.zeros(5, np.float32))
+        monkeypatch.setattr(sp, "_refine_graph", None)
+        with tracing.frame(2):
+            sp.track(tp, alive, np.eye(4), cands, *gt)
+        # The loop closer's localisations.
+        solver._localize_batch(tp, alive, [torch.eye(4)], [gt[0]], [gt[1]],
+                               4, 1, CAM, RCFG)
+        counters = tracing.drain()["counters"]
+    finally:
+        tracing.disable()
+    assert len(graphs) == 7 and not any(graphs)
+    captures = [c["n"] for c in counters
+                if c["name"] == "track.graph_captures"]
+    assert len(captures) == 3 and sum(captures) == 0
+
+
+@pytest.mark.parametrize("tiles, k4", [(True, False), (False, True)],
+                         ids=["subset_k2", "full_k4"])
+def test_frozen_sorted_loss_in_steps_is_autograds(tiles, k4):
+    """`_frozen_sorted_loss`, its kernel calls made as they come, returns
+    the loss of `render_frozen_sorted(_tiles)(_pose)` and autograd's
+    gradient through it bit for bit (the CPU twins; seg_cap 64 keeps them
+    fast)."""
+    rcfg = RCFG._replace(dup_side=3, seg_cap=64)
+    p = {k: torch.as_tensor(v) for k, v in _scene(n=60, seed=3).items()}
+    colors = 0.28209479177387814 * p["f_dc"] + 0.5
+    fs = R.freeze_sorted(p["xyz"], p["quats"], p["log_scales"],
+                         p["opacity_logits"], colors, torch.eye(4), CAM, rcfg)
+    tcfg = T.TrackerConfig(enable_exposure=True, pose_grad_kernel=k4)
+    gen = torch.Generator().manual_seed(1)
+    gt = (torch.rand(CAM.height, CAM.width, 3, generator=gen),
+          torch.rand(CAM.height, CAM.width, generator=gen) + 2.0)
+    ids = None
+    if tiles:
+        ids = torch.tensor([0, 2, 4, 5], dtype=torch.int32)
+        gt = tuple(R.gt_tiles(g, ids, 16, 3, 3) for g in gt)
+    pose = {"quat": torch.tensor([0.999, 0.01, -0.02, 0.005]),
+            "trans": torch.tensor([0.01, -0.02, 0.03]),
+            "exposure": torch.tensor([0.05, -0.01])}
+
+    leaf = {k: v.clone().requires_grad_(True) for k, v in pose.items()}
+    if k4:
+        vec = torch.cat([leaf["quat"], leaf["trans"]])
+        out = (R.render_frozen_sorted_tiles_pose(fs, vec, torch.eye(4), ids,
+                                                 CAM, rcfg) if tiles else
+               R.render_frozen_sorted_pose(fs, vec, torch.eye(4), CAM, rcfg))
+    else:
+        w2c = R.small_matmul(torch.eye(4),
+                             T._rel_matrix(leaf["quat"], leaf["trans"]))
+        out = (R.render_frozen_sorted_tiles(fs, w2c, ids, CAM, rcfg) if tiles
+               else R.render_frozen_sorted(fs, w2c, CAM, rcfg))
+    cl, dl = T._losses_from_output(out, leaf, *gt, tcfg)
+    total = tcfg.w_color_loss * cl + (1 - tcfg.w_color_loss) * dl
+    want = torch.cat(torch.autograd.grad(total, [leaf[k] for k in T.LEAVES]))
+
+    steps = T._frozen_sorted_loss(fs, torch.eye(4), ids, *gt, None, CAM,
+                                  rcfg, tcfg)(
+        {k: v.clone().requires_grad_(True) for k, v in pose.items()})
+    calls = []
+    try:
+        call = next(steps)
+        while True:
+            calls.append(call[0].__name__)
+            call = steps.send(call[0](*call[1]))
+    except StopIteration as stop:
+        got_total, got_cl, got_dl, got = stop.value
+    assert calls == ["frozen_fwd", "frozen_pose_grad" if k4 else "frozen_bwd"]
+    assert torch.equal(got_total.detach(), total.detach())
+    assert torch.equal(got_cl.detach(), cl.detach())
+    assert torch.equal(got_dl.detach(), dl.detach())
+    assert torch.equal(got, want), (got - want).abs().max()

@@ -175,3 +175,8 @@ def test_edge_vo_matches_jax(frames):
     assert [k.frame_id for k in tvo.keyframes] == \
         [k.frame_id for k in jvo.keyframes]
     assert tvo.report()["n_keyframes"] == jvo.report()["n_keyframes"]
+    # Only the newest keyframe keeps its device tensors.
+    assert len(tvo.keyframes) > 1
+    assert all(k.pyramid is None and k.dt_levels is None
+               for k in tvo.keyframes[:-1])
+    assert tvo.keyframes[-1].dt_levels is not None

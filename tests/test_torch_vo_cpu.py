@@ -49,7 +49,7 @@ def _run(tmp_path, device, decoupled):
     try:
         report = gslam.run()
         vo_poses = np.stack([gslam.odometer.get_pose(i) for i in range(N)])
-        pyr_dev = gslam.odometer.keyframes[0].pyramid.levels[0].pts.device
+        pyr_dev = gslam.odometer.keyframes[-1].pyramid.levels[0].pts.device
     finally:
         gslam.cleanup()
         torch.set_num_threads(threads)
