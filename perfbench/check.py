@@ -3,8 +3,10 @@ reference (`reference.py`), each number beside its limit.
 
   - `frame_color_mae`, `frame_depth_mae_m`: the reader's frames that the
     window's loop received (a sample drawn from the seed) against the
-    reference's decode of the same files: the largest over the sample of
-    the mean absolute difference (colour in [0, 1], depth in metres).
+    reference's decode of the same files (the layout's `read_reference`,
+    `layouts.LAYOUTS`):
+    the largest over the sample of the mean absolute difference (colour in
+    [0, 1], depth in metres).
   - `render_mae`, `render_depth_rel`, `grad_rel`: the map and the pose the
     window reached (the estimate of the last frame the window mapped, the
     view the map was last optimised on), rendered through
@@ -27,7 +29,6 @@ import math
 import numpy as np
 import torch
 
-from . import reference
 
 PARAM_NAMES = ("xyz", "quats", "log_scales", "opacity_logits", "f_dc")
 
@@ -36,11 +37,13 @@ def passes(value, limit) -> bool:
     return value is not None and math.isfinite(value) and value <= limit
 
 
-def frames(kept: dict, paths, cam: dict, device) -> dict:
-    """`kept`: frame id -> (colour, depth) as the loop received them."""
+def frames(kept: dict, paths, cam: dict, read, device) -> dict:
+    """`kept`: frame id -> (colour, depth) as the loop received them;
+    `paths`: each frame's files; `read(colour, depth, cam)`: the stream
+    layout's reference reader."""
     col = dep = 0.0
     for i, (c, d) in kept.items():
-        rc, rd = reference.frame(paths[i][0], paths[i][1], cam)
+        rc, rd = read(paths[i][0], paths[i][1], cam)
         rc = torch.as_tensor(rc, device=device)
         rd = torch.as_tensor(rd, device=device)
         col = max(col, float((c.double() - rc.double()).abs().mean()))

@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from . import check, reference, trace, traffic
+from . import check, layouts, reference, trace, traffic
 
 WARM_FRAMES = 4
 PROFILE_AFTER = 8
@@ -398,14 +398,15 @@ def run_cell(cell: dict, config_file: dict, traffic_mix: dict, seed: int,
     t_check = time.perf_counter()
     rcam = {**stream["cam"], "depth_scale": config["cam"]["depth_scale"],
             "crop_edge": int(config["cam"].get("crop_edge", 0))}
+    read = layouts.entry(stream["layout"]).read_reference
     kept = run.kept
     if control:
         kept = {}
         for i in run.kept:
-            c, d = reference.frame(*gen["paths"][i], rcam)
+            c, d = read(*gen["paths"][i], rcam)
             kept[i] = (torch.as_tensor(c, device=device).bfloat16().float(),
                        torch.as_tensor(d, device=device).bfloat16().float())
-    numbers = check.frames(kept, gen["paths"], rcam, device)
+    numbers = check.frames(kept, gen["paths"], rcam, read, device)
     ref = reference.render(params, w2c, cam_d, rast, alive=alive,
                            cotangent=cot)
     numbers.update(check.render_numbers(prog, ref))

@@ -1,5 +1,5 @@
-"""Frozen writers of the readers' on-disk layouts, and the lens
-pre-distortion of the generated frames.
+"""Frozen writers of the readers' on-disk layouts, the table that names
+each layout's files, and the lens pre-distortion of the generated frames.
 
   - `write_png`: 8-bit RGB or 16-bit gray PNG, a filter type a row (0-4)
     and zlib level 6;
@@ -12,18 +12,28 @@ pre-distortion of the generated frames.
   - `write_replica_frame` / `write_replica_text`: results/frame%06d.jpg
     (Pillow, `quality`), results/depth%06d.png (16-bit at `depth_scale`)
     and traj.txt (flattened 4x4 c2w rows);
+  - `write_scannetpp_frame` / `write_scannetpp_transforms`: ScanNet++'s
+    undistorted DSLR layout, dslr/undistorted_images/DSC%05d.JPG (Pillow,
+    `quality`), dslr/undistorted_depths/DSC%05d.png (16-bit at
+    `depth_scale`) and dslr/nerfstudio/transforms_undistorted.json (the
+    camera, each frame's OpenGL c2w, no held-out `test_frames`); no lens,
+    as the undistorted images have none;
+  - `LAYOUTS`: a layout's directories, paths, frame writer, end-of-sequence
+    writer and reference reader, keyed by `stream.layout.kind`;
   - `predistort_maps`: where a capture through the lens samples the clean
     image, so that undistorting it gives the clean image back.
 """
 from __future__ import annotations
 
+import json
 import os
 import struct
 import zlib
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 
-from .reference import distort_points
+from . import reference
 
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -150,25 +160,112 @@ def write_tum_frame(root, i: int, n: int, rgb, depth, layout: dict) -> None:
     write_png(d, depth_u16(depth, float(layout["depth_scale"])))
 
 
-def replica_paths(root, i: int):
+def replica_paths(root, i: int, n: int, layout: dict):
     res = os.path.join(root, "results")
     return (os.path.join(res, f"frame{i:06d}.jpg"),
             os.path.join(res, f"depth{i:06d}.png"))
 
 
-def write_replica_frame(root, i: int, rgb, depth, layout: dict) -> None:
+def write_replica_frame(root, i: int, n: int, rgb, depth,
+                        layout: dict) -> None:
     from PIL import Image
 
-    c, d = replica_paths(root, i)
+    c, d = replica_paths(root, i, n, layout)
     Image.fromarray(np.asarray(rgb, np.uint8)).save(
         c, quality=int(layout["quality"]))
     write_png(d, depth_u16(depth, float(layout["depth_scale"])))
 
 
-def write_replica_text(root, poses) -> None:
+def write_replica_text(root, n: int, poses, cam: dict, layout: dict) -> None:
     np.savetxt(os.path.join(root, "traj.txt"),
                np.stack([np.asarray(p, np.float64).reshape(-1)
                          for p in poses]))
+
+
+def scannetpp_paths(root, i: int, n: int, layout: dict):
+    dslr = os.path.join(root, "dslr")
+    return (os.path.join(dslr, "undistorted_images", f"DSC{i:05d}.JPG"),
+            os.path.join(dslr, "undistorted_depths", f"DSC{i:05d}.png"))
+
+
+def write_scannetpp_frame(root, i: int, n: int, rgb, depth,
+                          layout: dict) -> None:
+    from PIL import Image
+
+    c, d = scannetpp_paths(root, i, n, layout)
+    Image.fromarray(np.asarray(rgb, np.uint8)).save(
+        c, format="JPEG", quality=int(layout["quality"]))
+    write_png(d, depth_u16(depth, float(layout["depth_scale"])))
+
+
+# nerfstudio's c2w is OpenGL's (y up, z backwards); the reader flips it
+# back with the same diagonal.
+GL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
+
+
+def write_scannetpp_transforms(root, n: int, poses, cam: dict,
+                               layout: dict) -> None:
+    meta = {"w": int(cam["W"]), "h": int(cam["H"]),
+            "fl_x": float(cam["fx"]), "fl_y": float(cam["fy"]),
+            "cx": float(cam["cx"]), "cy": float(cam["cy"]),
+            "frames": [{"file_path": os.path.basename(
+                            scannetpp_paths(root, i, n, layout)[0]),
+                        "transform_matrix": (np.asarray(poses[i], np.float64)
+                                             @ GL_FLIP).tolist()}
+                       for i in range(n)],
+            "test_frames": []}
+    with open(os.path.join(root, "dslr", "nerfstudio",
+                           "transforms_undistorted.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def finish_tum(root, n: int, poses, cam: dict, layout: dict) -> None:
+    """The orphan pair, then the three texts."""
+    if layout.get("orphan_after") is not None:
+        h, w = cam["H"], cam["W"]
+        write_tum_frame(root, n, n, np.zeros((h, w, 3), np.uint8),
+                        np.zeros((h, w), np.float32), layout)
+    write_tum_text(root, n, poses, layout)
+
+
+class Layout(NamedTuple):
+    """One reader's layout. `dirs`: the directories under the root;
+    `paths(root, i, n, layout)`: frame i's (colour, depth) files;
+    `write_frame(root, i, n, rgb, depth, layout)`; `finish(root, n, poses,
+    cam, layout)`: the files written after the last frame;
+    `read_reference(colour path, depth path, rcam)`: frame i as the
+    layout's reader returns it, by the plain reference; `lens`: whether
+    a capture through a lens (`cam.distortion`) can be stored."""
+    dirs: Tuple[str, ...]
+    paths: Callable
+    write_frame: Callable
+    finish: Callable
+    read_reference: Callable
+    lens: bool
+
+
+LAYOUTS = {
+    "tum": Layout(
+        ("rgb", "depth"), tum_paths, write_tum_frame, finish_tum,
+        reference.frame, True),
+    "replica": Layout(
+        ("results",), replica_paths, write_replica_frame, write_replica_text,
+        reference.frame, True),
+    "scannetpp": Layout(
+        ("dslr/undistorted_images", "dslr/undistorted_depths",
+         "dslr/nerfstudio"),
+        scannetpp_paths, write_scannetpp_frame, write_scannetpp_transforms,
+        reference.scannetpp_frame, False),
+}
+
+
+def entry(layout: dict) -> Layout:
+    """The table's entry of `layout["kind"]`."""
+    try:
+        return LAYOUTS[layout["kind"]]
+    except KeyError:
+        raise ValueError(f"unknown layout {layout['kind']!r}; layouts: "
+                         f"{sorted(LAYOUTS)}") from None
 
 
 def predistort_maps(cam: dict, dist, iters: int = 25):
@@ -180,7 +277,8 @@ def predistort_maps(cam: dict, dist, iters: int = 25):
     xyd = np.stack([(u - cam["cx"]) / cam["fx"],
                     (v - cam["cy"]) / cam["fy"]], -1)
     xy = xyd.copy()
+    dist = np.asarray(dist, np.float64)
     for _ in range(iters):
-        xy = xy + (xyd - distort_points(xy, np.asarray(dist, np.float64)))
+        xy = xy + (xyd - reference.distort_points(xy, dist))
     return ((cam["fx"] * xy[..., 0] + cam["cx"]).astype(np.float32),
             (cam["fy"] * xy[..., 1] + cam["cy"]).astype(np.float32))

@@ -5,7 +5,8 @@ the program (`tests/test_perfbench_reference.py` checks its imports).
     16-bit depth PNG through zlib), undistorts colour with the OpenCV
     5-coefficient lens model (bilinear, border clamp, rounded to uint8),
     crops `crop_edge` and scales, as a reader of that layout returns a
-    frame: colour float32 in [0, 1], depth float32 in metres.
+    frame: colour float32 in [0, 1], depth float32 in metres. ScanNet++'s
+    DSLR frames are resized to the reader's 640x480 first (`scannetpp_frame`).
   - Rendering: the tile-binned Gaussian splat composite of the program's
     sorted backend, written out plainly: EWA projection (0.3 px low pass,
     opacity-aware radius capped to the +-r_n tile neighbourhood), the
@@ -118,12 +119,51 @@ def frame(color_path, depth_path, cam: dict) -> tuple:
     dist = cam.get("distortion")
     if dist is not None and np.any(np.asarray(dist)):
         rgb = remap_bilinear(rgb, *undistort_maps(cam, dist))
-    depth = read_depth_png(depth_path).astype(np.float32) \
-        / np.float32(cam["depth_scale"])
+    return _as_read(rgb, read_depth_png(depth_path), cam)
+
+
+def _as_read(rgb: np.ndarray, depth: np.ndarray, cam: dict) -> tuple:
+    """uint8 colour and 16-bit depth as a reader returns them: depth over
+    cam["depth_scale"], both cropped by cam["crop_edge"], colour in [0, 1]."""
+    depth = depth.astype(np.float32) / np.float32(cam["depth_scale"])
     e = int(cam.get("crop_edge", 0))
     if e:
         rgb, depth = rgb[e:-e, e:-e], depth[e:-e, e:-e]
     return rgb.astype(np.float32) / np.float32(255.0), depth
+
+
+# The size the ScanNet++ reader resizes every DSLR frame to.
+SCANNETPP_WH = (640, 480)
+
+
+def resize_nearest(img: np.ndarray, wh: tuple) -> np.ndarray:
+    """`img` (H, W, ...) resampled to `wh` = (width, height): output index
+    j of an axis of n_in samples reads floor((j + 0.5) * n_in / n_out),
+    the source sample under the output sample's centre."""
+    def index(n_in, n_out):
+        j = np.arange(n_out, dtype=np.float64)
+        return np.minimum(np.floor((j + 0.5) * (n_in / n_out)).astype(
+            np.int64), n_in - 1)
+
+    h, w = img.shape[:2]
+    return img[index(h, wh[1])[:, None], index(w, wh[0])]
+
+
+def scannetpp_frame(color_path, depth_path, cam: dict) -> tuple:
+    """ScanNet++'s frame as its reader returns it: the DSLR JPEG decoded
+    and resized to 640x480 bilinearly by Pillow, the 16-bit depth decoded
+    by `read_depth_png`, resized by `resize_nearest` and divided by
+    cam["depth_scale"], both cropped by cam["crop_edge"]. The colour goes
+    through Pillow's own resize, the library that `read_color` decodes
+    with: a rewrite of its fixed-point filter would be a second program to
+    get right, not a check of the first. Depth needs no such trust."""
+    from PIL import Image
+
+    with Image.open(color_path) as im:
+        rgb = np.asarray(im.convert("RGB").resize(SCANNETPP_WH,
+                                                  Image.BILINEAR), np.uint8)
+    return _as_read(rgb, resize_nearest(read_depth_png(depth_path),
+                                        SCANNETPP_WH), cam)
 
 
 # ---------------------------------------------------------------------------

@@ -5,14 +5,16 @@ sensor: `frames` (the sequence's length), `orbit_speed` (turns of the
 orbit a frame), and `depth_noise`, `depth_dropout`, `exposure_amp`. The
 configuration gives the camera and the reader's layout (`stream` in
 `perfbench/configs/<name>.json`): `cam` (fx, fy, cx, cy, W, H, and a lens
-`distortion` through which the capture is taken), and `layout`
-(`replica`: JPEG colour of `quality`; `tum`: PNG colour, the stamps and
-the orphan pair; 16-bit depth at `depth_scale` in both).
+`distortion` through which the capture is taken), and `layout`, whose
+`kind` names an entry of `layouts.LAYOUTS` (`replica`: JPEG colour of
+`quality`; `tum`: PNG colour, the stamps and the orphan pair; `scannetpp`:
+DSLR JPEG colour of `quality` and nerfstudio's transforms; 16-bit depth at
+`depth_scale` in all).
 
 `generate` renders every frame of the scene from the seed on the card
 (the frozen `scene.py`), pre-distorts it through the lens when there is
-one, and writes it in the layout under `root`, four writer threads
-encoding while the next frames render.
+one, and writes it with the layout's writers under `root`, four writer
+threads encoding while the next frames render.
 """
 from __future__ import annotations
 
@@ -35,34 +37,28 @@ def generate(stream: dict, traffic: dict, seed: int, root: str,
     "seconds": generation time, "bytes": bytes written, "paths": [(colour,
     depth)] of each frame}."""
     t0 = time.perf_counter()
+    cam, layout = stream["cam"], stream["layout"]
+    lay = layouts.entry(layout)
+    dist = cam.get("distortion")
+    lens = dist is not None and bool(np.any(np.asarray(dist)))
+    if lens and not lay.lens:
+        raise ValueError(f"a {layout['kind']!r} layout stores no lens; the "
+                         f"stream gives the distortion {dist}")
     if os.path.exists(root):
         shutil.rmtree(root)
-    cam, layout = stream["cam"], stream["layout"]
-    kind = layout["kind"]
+    for d in lay.dirs:
+        os.makedirs(os.path.join(root, d))
     n = int(traffic["frames"])
     poses = np.stack(scene.orbit_poses(n, float(traffic["orbit_speed"])))
     noise = {k: float(traffic[k]) for k in ("depth_noise", "depth_dropout",
                                             "exposure_amp")}
-    if kind == "tum":
-        os.makedirs(os.path.join(root, "rgb"))
-        os.makedirs(os.path.join(root, "depth"))
-        paths = [layouts.tum_paths(root, i, n, layout) for i in range(n)]
-    elif kind == "replica":
-        os.makedirs(os.path.join(root, "results"))
-        paths = [layouts.replica_paths(root, i) for i in range(n)]
-    else:
-        raise ValueError(f"unknown layout {kind!r}")
-    dist = cam.get("distortion")
-    maps = (layouts.predistort_maps(cam, dist)
-            if dist is not None and np.any(np.asarray(dist)) else None)
+    paths = [lay.paths(root, i, n, layout) for i in range(n)]
+    maps = layouts.predistort_maps(cam, dist) if lens else None
 
     def write(i, rgb, depth):
         if maps is not None:
             rgb = remap_bilinear(rgb, *maps)
-        if kind == "tum":
-            layouts.write_tum_frame(root, i, n, rgb, depth, layout)
-        else:
-            layouts.write_replica_frame(root, i, rgb, depth, layout)
+        lay.write_frame(root, i, n, rgb, depth, layout)
 
     with concurrent.futures.ThreadPoolExecutor(
             WRITERS, thread_name_prefix="perfbench-writer") as pool:
@@ -73,15 +69,7 @@ def generate(stream: dict, traffic: dict, seed: int, root: str,
             jobs.append(pool.submit(write, i, rgb, depth))
         for j in jobs:
             j.result()
-        if kind == "tum":
-            if layout.get("orphan_after") is not None:
-                rgb = np.zeros((cam["H"], cam["W"], 3), np.uint8)
-                layouts.write_tum_frame(root, n, n, rgb,
-                                        np.zeros((cam["H"], cam["W"]),
-                                                 np.float32), layout)
-            layouts.write_tum_text(root, n, poses, layout)
-        else:
-            layouts.write_replica_text(root, poses)
+        lay.finish(root, n, poses, cam, layout)
     # This run's files written back now, in set-up, not during the window.
     written = 0
     for d, _, fs in os.walk(root):
